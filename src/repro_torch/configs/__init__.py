@@ -1,0 +1,27 @@
+"""Config registry of the port: only the archs this slice serves."""
+
+from repro_torch.configs import qwen3_8b
+from repro_torch.configs.base import ArchConfig  # noqa: F401
+
+_MODULES = {
+    "qwen3-8b": qwen3_8b,
+}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def _module(name: str):
+    try:
+        return _MODULES[name]
+    except KeyError:
+        raise KeyError(
+            f"arch {name!r} is not ported yet (repro_torch serves "
+            f"{ARCH_NAMES}; see ROADMAP queue A)") from None
+
+
+def get_config(name: str) -> ArchConfig:
+    return _module(name).FULL
+
+
+def get_smoke(name: str) -> ArchConfig:
+    return _module(name).smoke()

@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the port, one package per kernel, each
+with its plain-PyTorch ``ref`` beside it.
+
+``SOURCES`` lists every kernel's CUDA sources so a caller can build them
+all at once (``_build.build_all(SOURCES)``) before first use.
+"""
+
+from repro_torch.kernels.paged_attention.kernel import SOURCES as _PAGED
+
+SOURCES = {
+    "paged_attention": _PAGED,
+}

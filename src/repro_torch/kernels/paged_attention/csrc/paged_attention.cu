@@ -1,0 +1,348 @@
+// Paged decode attention for Hopper (sm_90a): single-query GQA attention
+// read straight off a paged KV block pool through per-slot block tables.
+//
+// Replaces the Pallas TPU kernel
+//   src/repro/kernels/paged_attention/kernel.py:paged_attention_pallas
+//   (body _paged_attn_kernel, score helper _scores)
+// and computes what it computes, not block by block:
+//
+//   q       (B, H, D)       bf16 or f32 (the compute dtype dt)
+//   k/v pool (R, T, KV, D)  bf16 or f32, row 0 the NULL block
+//   tables  (B, nb) int32   physical pool row of each logical block
+//   lengths (B,) int32      valid positions per slot
+//   out     (B, H, D)       dt
+//
+// One thread block per (slot b, kv head h).  It stages the G = H / KV
+// query rows of its head group once, then walks the slot's positions
+// < lengths[b] in chunks of C positions (C = T * max(1, 64 / T): several
+// pool blocks per step, to spread each barrier and load latency over
+// more work).  For each chunk it reads the chunk's block-table entries
+// itself and stages the (C, D) K or V tile in shared memory.  Positions
+// past the length are never read, so whatever the NULL block or a stale
+// tail holds (even NaN) cannot leak.
+//
+// Two passes, with the reference's rounding sites (kernel.py _scores and
+// _accumulate, as XLA compiles them), so the kernel tracks the dense
+// gather path to reduction-order noise:
+//   pass 0: s = round_dt(f32 dot(q, k)) * scale_dt, the product kept in
+//           f32 (XLA's excess precision drops the source's round of it);
+//           running max m and rescaled sum l (online softmax, f32);
+//   pass 1: p = round_dt(exp(s - m) / max(l, 1e-30)); acc += p * v (f32);
+//   out = round_dt(acc).
+// expf (not __expf) keeps the kernel and the plain version within
+// reduction-order noise of each other.
+//
+// Tiles are staged with 16-byte loads, all of a thread's loads issued
+// before any is used.  Work split inside the block: one thread per
+// (query row, position) for
+// the dot products (4 partial sums for ILP, tile rows padded to D + 1
+// floats so the column reads are bank-conflict free), one warp per query
+// row for the softmax statistics, and a register accumulator per thread
+// over at most kMaxPairs (row, dim) pairs for PV.
+//
+// Bound: the HBM bytes of the K/V positions attended.  At qwen3-8b width
+// that is 36 layers x 2 (K, V) x 8 kv heads x 128 x 2 B = 147 KB per
+// cached token per decode tick, read against 3.35 TB/s.  Known gaps of
+// this design, for later work: K is read twice (once per pass); there is
+// no split of a long sequence across blocks, so only B * KV blocks are
+// in flight (64 at batch 8, against 132 SMs) and the longest slot sets
+// the time; tiles are staged synchronously (no TMA, no cp.async
+// pipeline overlapping the next chunk's loads with this chunk's math) and
+// the dot products run on CUDA cores (no wgmma).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+// Register accumulator slots per thread: G * D <= kThreads * kMaxPairs.
+constexpr int kMaxPairs = 8;
+// 16-byte loads a thread keeps in flight while staging a tile.
+constexpr int kLoads = 8;
+constexpr float kNegInf = -1e30f;
+
+template <typename T> __device__ __forceinline__ float to_f32(T x);
+template <> __device__ __forceinline__ float to_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
+    __nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Round a float32 value to the compute dtype and widen it back: the
+// reference's ``.astype(dt).astype(f32)`` (round to nearest even).
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(
+    float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Widen one 16-byte load to floats: 8 bf16 (a bf16 is the top half of
+// the float with the same bits) or 4 f32.
+template <typename T> __device__ __forceinline__ void unpack(const uint4& r,
+                                                             float* dst);
+template <> __device__ __forceinline__ void unpack<float>(const uint4& r,
+                                                          float* dst) {
+  dst[0] = __uint_as_float(r.x);
+  dst[1] = __uint_as_float(r.y);
+  dst[2] = __uint_as_float(r.z);
+  dst[3] = __uint_as_float(r.w);
+}
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(
+    const uint4& r, float* dst) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    dst[2 * k] = __uint_as_float(w[k] << 16);
+    dst[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// Stage the chunk's nvalid rows of one pool (K or V) for kv head h into
+// tile (row stride D + 1); rows_s holds the chunk's physical pool rows.
+// Each thread first issues all its 16-byte loads (up to kLoads), then
+// converts and stores them, so the loads' latencies overlap instead of
+// adding up.  The wrapper guarantees D * sizeof(KVT) % 16 == 0 and a
+// 16-byte aligned pool.
+template <typename KVT>
+__device__ __forceinline__ void stage_tile(
+    float* tile, const KVT* __restrict__ pool, const int* rows_s, int nvalid,
+    int h, int KV, int D, int T) {
+  constexpr int kVec = 16 / sizeof(KVT);   // elements per 16-byte load
+  const int per_row = D / kVec;
+  const int n = nvalid * per_row;
+  for (int base = 0; base < n; base += kThreads * kLoads) {
+    uint4 regs[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int v = base + u * kThreads + threadIdx.x;
+      if (v < n) {
+        const int t = v / per_row;
+        const int blk = t / T;
+        const size_t tok =
+            static_cast<size_t>(rows_s[blk]) * T + (t - blk * T);
+        regs[u] = *reinterpret_cast<const uint4*>(
+            pool + (tok * KV + h) * D + (v - t * per_row) * kVec);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int v = base + u * kThreads + threadIdx.x;
+      if (v < n) {
+        const int t = v / per_row;
+        unpack<KVT>(regs[u], tile + t * (D + 1) + (v - t * per_row) * kVec);
+      }
+    }
+  }
+}
+
+template <typename QT, typename KVT>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+    const QT* __restrict__ q, const KVT* __restrict__ k_pool,
+    const KVT* __restrict__ v_pool, const int* __restrict__ tables,
+    const int* __restrict__ lengths, QT* __restrict__ out, int H, int KV,
+    int D, int T, int nb, int C, float scale) {
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int G = H / KV;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int Dp = D + 1;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;            // (G, D) query rows, f32
+  float* kv_s = q_s + G * D;    // (C, D + 1) staged K or V tile, f32
+  float* s_s = kv_s + C * Dp;   // (G, C) scores, then probabilities
+  float* m_s = s_s + G * C;     // (G,) running max
+  float* l_s = m_s + G;         // (G,) running denominator
+  int* rows_s = reinterpret_cast<int*>(l_s + G);  // (C / T,) pool rows
+
+  // Never walk past the table, whatever the length says.
+  const int span = min(lengths[b], nb * T);
+  const int n_chunks = span > 0 ? (span + C - 1) / C : 0;
+  const size_t q_off =
+      (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_f32<QT>(q[q_off + i]);
+  if (tid < G) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+
+  // This thread's (query row, dim) accumulator pairs i = tid + k *
+  // kThreads: offsets of the row in s_s and of the dim in a tile row.
+  float acc[kMaxPairs];
+  int s_off[kMaxPairs];
+  int d_off[kMaxPairs];
+#pragma unroll
+  for (int k = 0; k < kMaxPairs; ++k) {
+    const int i = tid + k * kThreads;
+    acc[k] = 0.f;
+    s_off[k] = (i / D) * C;
+    d_off[k] = i % D;
+  }
+
+  const int* tb = tables + static_cast<size_t>(b) * nb;
+  for (int phase = 0; phase < 2; ++phase) {
+    for (int c = 0; c < n_chunks; ++c) {
+      const int c0 = c * C;                 // a multiple of T
+      const int nvalid = min(C, span - c0);
+      if (tid < (nvalid + T - 1) / T) rows_s[tid] = tb[c0 / T + tid];
+      __syncthreads();
+      stage_tile<KVT>(kv_s, k_pool, rows_s, nvalid, h, KV, D, T);
+      __syncthreads();
+
+      // Scores: one thread per (query row g, position t).
+      for (int i = tid; i < G * nvalid; i += kThreads) {
+        const int g = i / nvalid;
+        const int t = i - g * nvalid;
+        const float* qr = q_s + g * D;
+        const float* kr = kv_s + t * Dp;
+        float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+        int d = 0;
+        for (; d + 4 <= D; d += 4) {
+          p0 = fmaf(qr[d], kr[d], p0);
+          p1 = fmaf(qr[d + 1], kr[d + 1], p1);
+          p2 = fmaf(qr[d + 2], kr[d + 2], p2);
+          p3 = fmaf(qr[d + 3], kr[d + 3], p3);
+        }
+        for (; d < D; ++d) p0 = fmaf(qr[d], kr[d], p0);
+        s_s[g * C + t] = round_to<QT>((p0 + p1) + (p2 + p3)) * scale;
+      }
+      __syncthreads();
+
+      if (phase == 0) {
+        // Online softmax statistics, one warp per query row.  The next
+        // chunk's first __syncthreads orders these reads of s_s before
+        // its score writes.
+        for (int g = warp; g < G; g += kWarps) {
+          const float* sr = s_s + g * C;
+          float mb = kNegInf;
+          for (int t = lane; t < nvalid; t += 32) mb = fmaxf(mb, sr[t]);
+          const float m_prev = m_s[g];
+          const float m_new = fmaxf(m_prev, warp_max(mb));
+          float sum = 0.f;
+          for (int t = lane; t < nvalid; t += 32) sum += expf(sr[t] - m_new);
+          sum = warp_sum(sum);
+          if (lane == 0) {
+            l_s[g] = l_s[g] * expf(m_prev - m_new) + sum;
+            m_s[g] = m_new;
+          }
+        }
+      } else {
+        // Probabilities, rounded to dt before the PV product.
+        for (int i = tid; i < G * nvalid; i += kThreads) {
+          const int g = i / nvalid;
+          const int t = i - g * nvalid;
+          const float p =
+              expf(s_s[g * C + t] - m_s[g]) / fmaxf(l_s[g], 1e-30f);
+          s_s[g * C + t] = round_to<QT>(p);
+        }
+        // K is no longer needed: stage the chunk's V rows in its place.
+        stage_tile<KVT>(kv_s, v_pool, rows_s, nvalid, h, KV, D, T);
+        __syncthreads();
+        for (int t = 0; t < nvalid; ++t) {
+#pragma unroll
+          for (int k = 0; k < kMaxPairs; ++k) {
+            if (tid + k * kThreads < G * D)
+              acc[k] = fmaf(s_s[s_off[k] + t], kv_s[t * Dp + d_off[k]],
+                            acc[k]);
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kMaxPairs; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < G * D) out[q_off + i] = from_f32<QT>(acc[k]);
+  }
+}
+
+// Positions staged per chunk: whole pool blocks, about 64 positions.
+inline int chunk_positions(int T) {
+  const int blocks = 64 / T;
+  return T * (blocks > 1 ? blocks : 1);
+}
+
+template <typename QT, typename KVT>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const int* tables, const int* lengths, void* out, int B, int H,
+           int KV, int D, int T, int nb, float scale, cudaStream_t stream) {
+  if (B == 0 || KV == 0) return 0;
+  const int G = H / KV;
+  if (G * D > kThreads * kMaxPairs || (D * sizeof(KVT)) % 16 != 0 ||
+      reinterpret_cast<size_t>(k_pool) % 16 != 0 ||
+      reinterpret_cast<size_t>(v_pool) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int C = chunk_positions(T);
+  const size_t smem = sizeof(float) * (G * D + C * (D + 1) + G * C + 2 * G) +
+                      sizeof(int) * (C / T);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_kernel<QT, KVT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(B, KV);
+  paged_decode_kernel<QT, KVT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
+      static_cast<const KVT*>(v_pool), tables, lengths,
+      static_cast<QT*>(out), H, KV, D, T, nb, C, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes).  ``q_bf16`` / ``kv_bf16``
+// select bf16 (1) or f32 (0) for the query/output and the pool.  Returns
+// cudaGetLastError() after the launch: 0 on success.
+extern "C" int paged_attention_decode(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* tables, const void* lengths, void* out, int B, int H,
+    int KV, int D, int T, int nb, int q_bf16, int kv_bf16, float scale,
+    void* stream) {
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_bf16 && kv_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, tb, ln,
+                                                 out, B, H, KV, D, T, nb,
+                                                 scale, s);
+  if (q_bf16)
+    return launch<__nv_bfloat16, float>(q, k_pool, v_pool, tb, ln, out, B,
+                                         H, KV, D, T, nb, scale, s);
+  if (kv_bf16)
+    return launch<float, __nv_bfloat16>(q, k_pool, v_pool, tb, ln, out, B,
+                                         H, KV, D, T, nb, scale, s);
+  return launch<float, float>(q, k_pool, v_pool, tb, ln, out, B, H, KV, D,
+                              T, nb, scale, s);
+}

@@ -1,0 +1,96 @@
+"""Public wrapper: paged decode attention straight off a KV block pool.
+
+``paged_attention`` checks what the kernel takes and raises on anything
+else, then launches the CUDA kernel for CUDA tensors — no fallback — or
+runs the plain version (``ref``) for CPU tensors.  Each kernel launch
+adds one to ``paged_attention.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_attention import kernel
+from repro_torch.kernels.paged_attention.ref import (kernel_scale,
+                                                     paged_attention_ref)
+
+_DTYPES = (torch.bfloat16, torch.float32)
+_INTS = (torch.int32, torch.int64)
+# Shared memory a block may use on Hopper (227 KB), and the kernel's
+# (query row, dim) accumulator slots: 128 threads x 8 registers.
+_SMEM_LIMIT = 232_448
+_MAX_GD = 1024
+
+
+def _check(q, k_pool, v_pool, tables, lengths):
+    if q.dim() != 3 or k_pool.dim() != 4:
+        raise ValueError(f"want q (B, H, D) and pools (R, T, KV, D); got "
+                         f"q {tuple(q.shape)}, k {tuple(k_pool.shape)}")
+    B, H, D = q.shape
+    _R, T, KV, Dk = k_pool.shape
+    if H % KV != 0:
+        raise ValueError(f"H={H} must be a multiple of KV={KV}")
+    if Dk != D or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pool/query shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k_pool.shape)}, v {tuple(v_pool.shape)}")
+    if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(f"tables/lengths shape mismatch: want (B, nb) and "
+                         f"(B,) with B={B}, got {tuple(tables.shape)}, "
+                         f"{tuple(lengths.shape)}")
+    if q.dtype not in _DTYPES or k_pool.dtype not in _DTYPES \
+            or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"dtypes: q {q.dtype}, pools {k_pool.dtype}/"
+                        f"{v_pool.dtype} (bf16 or f32, pools alike)")
+    if tables.dtype not in _INTS or lengths.dtype not in _INTS:
+        raise TypeError(f"tables/lengths must be integer, got "
+                        f"{tables.dtype}/{lengths.dtype}")
+    devs = {t.device for t in (q, k_pool, v_pool, tables, lengths)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on different devices: {devs}")
+    if not all(t.is_contiguous() for t in (q, k_pool, v_pool)):
+        raise ValueError("q and the pools must be contiguous")
+    # The kernel stages K/V rows with 16-byte loads.
+    if (D * k_pool.element_size()) % 16 or any(
+            t.data_ptr() % 16 for t in (k_pool, v_pool)):
+        raise ValueError(f"pool rows must be 16-byte multiples on 16-byte "
+                         f"aligned pools (D={D}, {k_pool.dtype})")
+    G = H // KV
+    if G * D > _MAX_GD:
+        raise ValueError(f"G*D = {G * D} exceeds the kernel's {_MAX_GD} "
+                         f"register accumulator slots per block")
+    C = T * max(1, 64 // T)
+    smem = 4 * (G * D + C * (D + 1) + G * C + 2 * G) + 4 * (C // T)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"G={G}, D={D}, T={T} need {smem} B of shared "
+                         f"memory per block (limit {_SMEM_LIMIT})")
+
+
+def paged_attention(q, k_pool, v_pool, tables, lengths):
+    """Decode attention off a paged KV block pool.
+
+    q: (B, H, D) — one query token per slot, bf16 or f32.
+    k_pool, v_pool: (R, T, KV, D) — the physical block pool (row 0 is the
+        NULL block; its contents are write-garbage by design).
+    tables: (B, nb) int — physical pool row of each logical block.
+    lengths: (B,) int — valid positions per slot (the engine passes
+        ``positions + 1``: the current token's K/V is already appended).
+
+    Returns (B, H, D) in q's dtype.  Every block the table references
+    inside ``lengths[b]`` must be a real pool row.
+    """
+    _check(q, k_pool, v_pool, tables, lengths)
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, tables, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    tables = tables.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    kernel.launch(q, k_pool, v_pool, tables, lengths, out,
+                  kernel_scale(q.shape[-1], q.dtype))
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,0 +1,70 @@
+"""Plain PyTorch version of the paged-decode kernel.
+
+A direct transcription of the kernel's two-pass math (and so of the
+Pallas reference's ``_scores`` / ``_accumulate`` as XLA compiles them),
+vectorized over the gathered dense view instead of walked block by
+block: scores rounded to the query dtype, multiplied in float32 by the
+dtype-rounded scale, masked with -1e30 past each slot's length, softmax
+statistics in float32, probabilities rounded to the query dtype before
+the PV product, float32 accumulation and one final round.
+
+The reference's source also rounds the scaled score
+(``(s.astype(dt) * scale).astype(dt)``), but XLA's default excess
+precision elides that round trip: measured against the JAX kernel in
+bf16 at head_dim 128, this transcription agrees on every output bit,
+while rounding the product disagrees on ~40% of them.  Positions past a slot's
+length (the NULL block, stale tails) never reach a product, so garbage —
+even NaN — cannot leak.
+
+The CPU tests hold this against the JAX kernel in interpret mode, and
+``chip_smoke.py`` holds the CUDA kernel against it on the card.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+NEG_INF = -1e30
+
+
+@functools.cache
+def kernel_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """The kernel's ``1 / sqrt(D)`` rounded to the query dtype (the
+    reference multiplies a dtype array by a weak-typed Python float)."""
+    return float(torch.tensor(1.0 / (head_dim ** 0.5), dtype=dtype))
+
+
+def _round(x, dtype):
+    return x.to(dtype).float()
+
+
+def paged_attention_ref(q, k_pool, v_pool, tables, lengths):
+    """q: (B, H, D); k_pool/v_pool: (R, T, KV, D); tables: (B, nb) int;
+    lengths: (B,) valid positions per slot.  Returns (B, H, D) in q's
+    dtype; a slot of length 0 gets zeros."""
+    B, H, D = q.shape
+    _, T, KV, _ = k_pool.shape
+    nb = tables.shape[1]
+    G = H // KV
+    dt = q.dtype
+    S = nb * T
+    rows = tables.reshape(-1).long()
+    k = k_pool.index_select(0, rows).reshape(B, S, KV, D).float()
+    v = v_pool.index_select(0, rows).reshape(B, S, KV, D).float()
+    valid = (torch.arange(S, device=q.device)[None]
+             < lengths.to(q.device)[:, None])                  # (B, S)
+    v = torch.where(valid[:, :, None, None], v, 0.0)
+
+    qg = q.reshape(B, KV, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k)
+    s = _round(s, dt) * kernel_scale(D, dt)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(vmask, torch.exp(s - m), 0.0)
+    l = e.sum(dim=-1, keepdim=True)
+    p = _round(e / l.clamp_min(1e-30), dt)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return o.reshape(B, H, D).to(dt)

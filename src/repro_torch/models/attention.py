@@ -1,0 +1,135 @@
+"""Attention for the decode path: GQA with rope / qk-norm against a KV
+cache — dense (contiguous or gathered view) or straight off a paged pool.
+
+Port of ``repro/models/attention.py`` (``attn_defs``, ``decode_attention``
+and the bf16 branch of ``paged_decode_attention``).
+Rounding sites are the reference's as XLA compiles them: scores come out
+of the qk product rounded to the compute dtype, are multiplied in
+float32 by the head-dim scale rounded to the compute dtype (JAX rounds
+the Python-float scale to bf16 as a weak type; XLA's excess precision
+then keeps the product in float32 although the source casts it back),
+masked with -1e30, softmaxed in float32, and the probabilities are cast
+back to the compute dtype before the PV product.
+
+Caches are written IN PLACE (the reference returns new arrays): the
+current token's K/V lands at its slot's position before attention reads
+it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ref import kernel_scale
+from repro_torch.models.layers import PDef, rms_norm, rope
+
+NEG_INF = -1e30
+
+
+def attn_defs(d: int, n_heads: int, n_kv: int, head_dim: int,
+              qk_norm: bool = False) -> dict:
+    defs = {
+        "wq": PDef((d, n_heads, head_dim)),
+        "wk": PDef((d, n_kv, head_dim)),
+        "wv": PDef((d, n_kv, head_dim)),
+        "wo": PDef((n_heads, head_dim, d)),
+    }
+    if qk_norm:
+        defs["q_norm"] = PDef((head_dim,), "ones")
+        defs["k_norm"] = PDef((head_dim,), "ones")
+    return defs
+
+
+def _proj(x, w):
+    """x (B, T, d) @ w (d, N, k) -> (B, T, N, k) in x's dtype."""
+    d, n, k = w.shape
+    return (x @ w.reshape(d, n * k)).view(*x.shape[:-1], n, k)
+
+
+def _project_qkv(params, x, positions, *, qk_norm: bool, rope_theta: float):
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    if qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def _out_proj(o, wo):
+    """o (..., H, dh) @ wo (H, dh, d) -> (..., d)."""
+    h, k, d = wo.shape
+    return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
+
+
+def decode_attention(params, x, cache, positions, *, n_heads, n_kv,
+                     head_dim, qk_norm=False, rope_theta=1e4):
+    """Single-token attention against a dense per-slot KV cache.
+
+    x: (B, 1, d); positions: (B,) current index per slot; cache:
+    {"k", "v"} of (B, S, KV, dh), written in place at ``positions``.
+    Positions past each slot's own are masked.  Returns (out (B, 1, d),
+    cache).
+    """
+    B, T, _ = x.shape
+    dt = x.dtype
+    group = n_heads // n_kv
+    q, k, v = _project_qkv(params, x, positions[:, None], qk_norm=qk_norm,
+                           rope_theta=rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    b_idx = torch.arange(B, device=x.device)
+    pos = positions.long()
+    ck[b_idx, pos] = k[:, 0].to(ck.dtype)                 # in place
+    cv[b_idx, pos] = v[:, 0].to(cv.dtype)
+    S = ck.shape[1]
+
+    # (B, T, KV, G, dh) -> (B, KV, G*T, dh): one GQA group per kv head.
+    qg = q.reshape(B, T, n_kv, group, head_dim).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(B, n_kv, group * T, head_dim)
+    s = qg @ ck.to(dt).permute(0, 2, 3, 1)                # (B, KV, G*T, S)
+    s = s.float() * kernel_scale(head_dim, dt)         # the kernel's scale
+    valid = torch.arange(S, device=x.device)[None] <= positions[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = p @ cv.to(dt).permute(0, 2, 1, 3)                 # (B, KV, G*T, dh)
+    o = o.reshape(B, n_kv, group, T, head_dim).permute(0, 3, 1, 2, 4)
+    out = _out_proj(o.reshape(B, T, n_heads, head_dim), params["wo"])
+    return out, cache
+
+
+def paged_decode_attention(params, x, kvs, tables, positions, *, n_heads,
+                           n_kv, head_dim, qk_norm=False, rope_theta=1e4,
+                           kv_dtype="bf16"):
+    """Gather-free decode attention against a paged KV block pool.
+
+    x: (B, 1, d); kvs: (k, v) pool leaves (R, T, KV, dh), row 0 the NULL
+    block; tables: (B, nb) int32 physical pool row per logical block;
+    positions: (B,) current index per slot.  The current token's K/V is
+    appended IN PLACE at ``tables[b, p // T]``, offset ``p % T`` (one
+    (KV, dh) vector per slot), then the paged-decode kernel attends the
+    slot's ``p + 1`` valid positions, reading only the blocks they span.
+    Inactive slots point every table entry at the NULL block (write
+    garbage by design); their outputs are discarded by the engine.
+    Returns (out (B, 1, d), kvs).
+    """
+    if kv_dtype != "bf16":
+        raise NotImplementedError(
+            f"kv_dtype {kv_dtype!r} pools are not ported yet (ROADMAP A9)")
+    B = x.shape[0]
+    dt = x.dtype
+    ck, cv = kvs
+    T = ck.shape[1]
+    q, k, v = _project_qkv(params, x, positions[:, None], qk_norm=qk_norm,
+                           rope_theta=rope_theta)
+    b_idx = torch.arange(B, device=x.device)
+    pos = positions.long()
+    row = tables[b_idx, pos // T].long()
+    off = pos % T
+    ck[row, off] = k[:, 0].to(ck.dtype)                   # in place
+    cv[row, off] = v[:, 0].to(cv.dtype)
+    o = paged_attention(q[:, 0], ck, cv, tables,
+                        (positions + 1).to(torch.int32))
+    return _out_proj(o.to(dt), params["wo"])[:, None], kvs

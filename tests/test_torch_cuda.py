@@ -1,0 +1,65 @@
+"""Tests that need an NVIDIA GPU: the port's CUDA kernels against their
+plain PyTorch versions on the card.  They carry the ``cuda`` marker and
+skip without a card; run them there with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports torch and the port only (the card's machine has no
+JAX).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.paged_attention import ops, ref
+
+
+def _case(B, H, KV, D, T, nb, *, dtype, seed=5, device="cuda"):
+    """A shuffled pool with NaN in the NULL block and unreferenced rows."""
+    r = np.random.default_rng(seed)
+    lengths = r.integers(1, nb * T + 1, B).astype(np.int32)
+    lengths[0] = nb * T
+    R = 1 + B * nb + 3
+    kp = r.normal(size=(R, T, KV, D)).astype(np.float32)
+    vp = r.normal(size=(R, T, KV, D)).astype(np.float32)
+    tables = np.zeros((B, nb), np.int32)
+    free = list(range(1, R))
+    r.shuffle(free)
+    used = set()
+    for b in range(B):
+        for j in range(-(-int(lengths[b]) // T)):
+            tables[b, j] = free.pop()
+            used.add(int(tables[b, j]))
+    for row in set(range(R)) - used:
+        kp[row] = np.nan
+        vp[row] = np.nan
+    q = r.normal(size=(B, H, D)).astype(np.float32)
+    to = lambda a, dt=dtype: torch.tensor(a).to(device=device, dtype=dt)
+    return (to(q), to(kp), to(vp), to(tables, torch.int32),
+            to(lengths, torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,dtype", [
+    ((8, 32, 8, 128, 16, 128), torch.bfloat16),   # qwen3-8b main path
+    ((3, 4, 2, 16, 4, 6), torch.bfloat16),        # smoke width
+    ((4, 8, 8, 64, 8, 5), torch.float32),         # G = 1, f32 pool
+])
+def test_paged_attention_kernel_matches_plain(dims, dtype):
+    """bf16 within two bf16 ulps plus 1e-3; f32 within rtol 1e-4 /
+    atol 1e-5 (reduction order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    case = _case(*dims, dtype=dtype)
+    before = ops.paged_attention.launches
+    got = ops.paged_attention(*case)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches == before + 1
+    want = ref.paged_attention_ref(*case)
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=1.6e-2, atol=1e-3)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
