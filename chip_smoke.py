@@ -10,27 +10,51 @@ Phases (any failure raises, and the script exits non-zero):
               and nvcc versions;
   2. build  — compile every kernel of the port from this checkout's
               sources with nvcc, all at once;
-  3. kernel — the paged-decode CUDA kernel against its plain PyTorch
+  3. kernel — B1, the paged-decode CUDA kernel, against its plain PyTorch
               version at the main path's shapes (qwen3-8b decode: B=8,
               H=32, KV=8, D=128, T=16, ragged lengths 1..2048, shuffled
               pool rows, NaN in the NULL block, unused rows and stale
               tails) and at edges (length 1, lengths a multiple of T,
-              G=1, f32 pools, a zero-length slot); times of the kernel,
-              the plain version and one PyTorch library call
-              (``scaled_dot_product_attention`` on a pre-gathered dense
-              view — a yardstick the port never calls), and the bound;
-  4. ladder — smoke-width qwen3-8b served at O2, O4, O5, O6-gather and
-              O6-kernel on the card: identical greedy tokens on a mixed
-              request set with mid-flight arrivals and planted eos;
+              G=1, f32 pools, a zero-length slot);
+     3b.    — B2, the multi-query kernel (same source), against its plain
+              version at the slice's shapes (chunked prefill B=1, Q=64
+              from starts 0, 37 and 960, a padded final chunk past the
+              table; verify B=8, Q=5 over the phase-3 lengths) and edges
+              (G=1, f32 pools, a window across a block boundary, smoke
+              width); B2 at Q=1 and every row of a chunk and of a verify
+              window bitwise equal to B1 at that row's limit.  For both
+              kernels: device times of the kernel, the plain version and
+              one PyTorch library call (``scaled_dot_product_attention``
+              on a pre-gathered dense view — a yardstick the port never
+              calls), the wrapper's host time per call, and the bound;
+  4. ladder — smoke-width qwen3-8b on the card at O2, O4, O5, O6-gather,
+              O6-kernel, with chunked prefill (chunks 3 and 8) on O5,
+              O6-gather and O6-kernel, and at O7 with the smollm-360m
+              smoke drafter (K = 2, 4; gather and kernel verify):
+              identical greedy tokens on a mixed request set with
+              mid-flight arrivals and planted eos; a self-draft run must
+              accept every draft;
   5. full   — qwen3-8b at its published widths in bf16 with random
-              weights from a seed: (a) a teacher-forced run of the gather
-              step and the kernel step over a shared random KV prefix,
-              logits compared tick by tick, at 2 layers (tight) and 36
-              (held to the drift of the kernel's plain version); (b)
-              ``serve_demo`` at O6 with ``paged_attn="kernel"`` answering
-              8 requests, with the kernel's launches counted (they must
-              equal layers x ticks);
-              (c) a ``torch.profiler`` reading of device time per tick.
+              weights from a seed, 8 requests (prompts 16-256, 32 new
+              tokens each) at batch 8, max_seq 1024, T=16, O6-kernel:
+              (a) a teacher-forced run of the gather step and the kernel
+              step over a shared random KV prefix, logits compared tick by
+              tick, at 2 layers (tight) and 36 (held to the drift of the
+              kernel's plain version); (b) ``serve_demo`` with prompts fed
+              a token per tick, B1 launches = layers x ticks; (c) a
+              ``torch.profiler`` reading of device time per tick;
+              (d) chunked prefill at ``prefill_chunk=64``: TTFT in ticks
+              and ms, B2 launches = layers x chunk dispatches and B1
+              launches = layers x decode dispatches, and a teacher-forced
+              check of the chunk step against the decode step fed one
+              token at a time (2 layers tight, 36 held to B2's plain
+              version's drift); (e) O7 at ``draft_k=4`` with the target
+              drafting for itself (the published qwen3-8b -> smollm-360m
+              pair must be refused at full scale): acceptance, tokens per
+              window, B2 launches = layers x verify dispatches, the share
+              of tokens equal to (d)'s, and a teacher-forced comparison of
+              verify rows with decode rows that says where their bits
+              part.
 
 Prints the card line and a JSON object of kernel numbers on lines before
 the last, writes the detailed numbers to ``chiprun_out/chip_smoke.json``,
@@ -54,11 +78,20 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# Clock cycles of the spin kernel that holds the device ahead of a timed
+# launch: about 5 ms at the H100's 1.98 GHz boost clock.
+SPIN_CYCLES = 10_000_000
 
 KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
-KERNEL_REPLACES = "src/repro/kernels/paged_attention/kernel.py:318"
+B1_REPLACES = "src/repro/kernels/paged_attention/kernel.py:318"
+B2_REPLACES = "src/repro/kernels/paged_attention/kernel.py:254"
 # |kernel - plain| <= ATOL + RTOL * |plain|: two bf16 ulps for bf16
-# outputs; reduction-order noise for f32.
+# outputs; reduction-order noise for f32.  B2 takes |plain| as the
+# largest |plain| of the element's row (one query head): its short rows
+# (a prefill chunk's first queries attend a handful of positions) carry
+# probabilities near 1, and a one-ulp difference in one of them, from
+# the order the softmax denominator is summed in, moves every output of
+# the row at the row's scale, also where the output cancels to near 0.
 TOL = {"bf16": (1e-3, 1.6e-2), "f32": (1e-5, 1e-4)}
 
 
@@ -80,7 +113,11 @@ def card_line() -> str:
 def time_ms(fn, *, reps: int = 30, warmup: int = 3) -> float:
     """Median device time of ``fn()`` over ``reps`` launches (CUDA
     events), with the 50 MB L2 flushed before each so every launch finds
-    its operands in HBM, as a decode layer does."""
+    its operands in HBM, as a decode layer does.  A spin kernel of about
+    5 ms queued ahead of the start event holds the device while the host
+    enqueues ``fn``'s launches, so the wrapper's host time (checks,
+    ctypes, Python) is not counted: the events bracket device work
+    only."""
     import torch
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
@@ -91,6 +128,7 @@ def time_ms(fn, *, reps: int = 30, warmup: int = 3) -> float:
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -99,32 +137,52 @@ def time_ms(fn, *, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, *, reps: int = 200) -> float:
+    """Host time per call of ``fn()``: the wall clock over ``reps``
+    calls enqueued back to back, behind a spin kernel long enough that
+    the device never waits for the host and the launch queue never
+    fills, so the clock reads the wrapper's own cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES * 20)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def paged_case(B, H, KV, D, T, lengths, *, dtype, q_dtype=None, seed=0,
-               extra_rows=16, device="cuda"):
+               extra_rows=16, device="cuda", q_len=None, nb=None):
     """A pool whose referenced rows are shuffled, whose NULL block,
-    unused rows and per-slot tails past the length hold NaN."""
+    unused rows and per-slot tails past the length hold NaN.  ``q_len``
+    gives q a query axis (B, q_len, H, D); ``nb`` widens the tables past
+    the longest length, or narrows them below it."""
     import numpy as np
     import torch
 
     r = np.random.default_rng(seed)
     lengths = np.asarray(lengths, np.int32)
-    nb = max(1, -(-int(lengths.max()) // T))
+    nb = nb or max(1, -(-int(lengths.max()) // T))
     R = 1 + B * nb + extra_rows
     g = torch.Generator(device=device).manual_seed(seed)
     kp = torch.randn((R, T, KV, D), generator=g, device=device).to(dtype)
     vp = torch.randn((R, T, KV, D), generator=g, device=device).to(dtype)
-    q = torch.randn((B, H, D), generator=g, device=device).to(
-        q_dtype or dtype)
+    q = torch.randn((B, H, D) if q_len is None else (B, q_len, H, D),
+                    generator=g, device=device).to(q_dtype or dtype)
     tables = np.zeros((B, nb), np.int32)
     free = list(range(1, R))
     r.shuffle(free)
     used = set()
     for b in range(B):
-        for j in range(-(-int(lengths[b]) // T)):
+        for j in range(min(nb, -(-int(lengths[b]) // T))):
             tables[b, j] = free.pop()
             used.add(int(tables[b, j]))
     for row in range(R):
@@ -133,37 +191,52 @@ def paged_case(B, H, KV, D, T, lengths, *, dtype, q_dtype=None, seed=0,
             vp[row] = float("nan")
     for b in range(B):
         L = int(lengths[b])
-        if L % T:
+        if L % T and L < nb * T:
             kp[int(tables[b, L // T]), L % T:] = float("nan")
             vp[int(tables[b, L // T]), L % T:] = float("nan")
     return (q, kp, vp, torch.tensor(tables, device=device),
             torch.tensor(lengths, device=device))
 
 
-def check_case(name, case, kind):
-    """Kernel vs plain on one case; returns max |kernel - plain|."""
+def check_case(name, case, kind, *, prefill=False):
+    """Kernel vs plain on one case; returns (max |kernel - plain|, the
+    kernel's output)."""
     import torch
     from repro_torch.kernels.paged_attention import ops, ref
 
-    got = ops.paged_attention(*case)
+    fn, plain = ((ops.paged_prefill_attention,
+                  ref.paged_prefill_attention_ref) if prefill else
+                 (ops.paged_attention, ref.paged_attention_ref))
+    out = fn(*case)
     torch.cuda.synchronize()
-    want = ref.paged_attention_ref(*case)
-    got, want = got.float(), want.float()
+    got, want = out.float(), plain(*case).float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"kernel case {name}: non-finite output")
     err = (got - want).abs()
     atol, rtol = TOL[kind]
-    bad = err > atol + rtol * want.abs()
+    scale = (want.abs().amax(dim=-1, keepdim=True) if prefill
+             else want.abs())
+    bad = err > atol + rtol * scale
     if bad.any():
         raise AssertionError(
             f"kernel case {name}: {int(bad.sum())} elements beyond "
             f"{atol} + {rtol}*|plain| (max err {float(err.max())})")
-    log(f"[kernel] {name}: max |kernel - plain| = {float(err.max()):.3e} "
-        f"(tolerance {atol} + {rtol}*|plain|)")
-    return float(err.max())
+    log(f"[kernel] {'B2' if prefill else 'B1'} {name}: max |kernel - plain| "
+        f"= {float(err.max()):.3e} (tolerance {atol} + {rtol}*|plain|"
+        f"{' of the row' if prefill else ''})")
+    return float(err.max()), out
 
 
-def phase_kernel() -> dict:
+def bound(nbytes: int, flops: int) -> tuple:
+    """(least time in ms, what bounds it) on an H100 SXM."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_kernel() -> tuple:
+    """B1 against its plain version; returns its kernel-line entry and
+    the main case (phase 3b holds B2 at Q=1 against it)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -175,8 +248,8 @@ def phase_kernel() -> dict:
     lengths[0], lengths[-1] = 1, 2048
     bf = torch.bfloat16
     main = paged_case(B, H, KV, D, T, lengths, dtype=bf)
-    err = check_case(f"main path B={B} H={H} KV={KV} D={D} T={T} lengths="
-                     f"{lengths.tolist()}", main, "bf16")
+    err, _ = check_case(f"main path B={B} H={H} KV={KV} D={D} T={T} "
+                        f"lengths={lengths.tolist()}", main, "bf16")
     check_case("length 1 everywhere",
                paged_case(B, H, KV, D, T, [1] * B, dtype=bf, seed=1), "bf16")
     check_case("lengths multiples of T",
@@ -199,15 +272,11 @@ def phase_kernel() -> dict:
 
     # Times at the main path's shapes.
     ms = time_ms(lambda: ops.paged_attention(*main))
+    wrapper_ms = host_ms(lambda: ops.paged_attention(*main))
     plain_ms = time_ms(lambda: ref.paged_attention_ref(*main))
     q, kp, vp, tables, lens = main
-    S = tables.shape[1] * T
-    rows = tables.reshape(-1).long()
-    kd = torch.nan_to_num(kp.index_select(0, rows)).reshape(
-        B, S, KV, D).permute(0, 2, 1, 3).contiguous()
-    vd = torch.nan_to_num(vp.index_select(0, rows)).reshape(
-        B, S, KV, D).permute(0, 2, 1, 3).contiguous()
-    mask = (torch.arange(S, device="cuda")[None] < lens[:, None])[
+    kd, vd = dense_view(main)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None] < lens[:, None])[
         :, None, None, :]
     q4 = q[:, :, None, :]
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -219,25 +288,182 @@ def phase_kernel() -> dict:
               + 2 * n_tok * KV * D * kp.element_size()   # K and V read
               + blocks * 4 + B * 4)                      # tables, lengths
     flops = 4 * H * D * n_tok                            # QK and PV
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    bound_ms, bound_by = bound(nbytes, flops)
     out = {
         "name": "paged_attention",
         "route": "cuda",
         "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
+        "replaces": B1_REPLACES,
         "launches": None,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
+        "wrapper_host_ms": wrapper_ms,
     }
-    log(f"[kernel] main path: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library (sdpa on a gathered view) {library_ms:.4f} ms, bound "
-        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {nbytes} B, "
-        f"{flops} FLOP)")
+    log(f"[kernel] B1 main path: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, library (sdpa on a gathered view) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} FLOP); the "
+        f"wrapper's host time per call {wrapper_ms:.4f} ms")
+    return out, main
+
+
+def dense_view(case):
+    """The slot-major dense (B, KV, S, D) K and V a table gathers, NaN
+    zeroed: what ``scaled_dot_product_attention`` reads as a yardstick."""
+    import torch
+
+    q, kp, vp, tables, _ = case
+    B, nb = tables.shape
+    _, T, KV, D = kp.shape
+    rows = tables.reshape(-1).long()
+    return tuple(torch.nan_to_num(p.index_select(0, rows)).reshape(
+        B, nb * T, KV, D).permute(0, 2, 1, 3).contiguous() for p in (kp, vp))
+
+
+def row_limits(case):
+    """(B, Q) causal limit of every query row of a B2 case."""
+    import torch
+
+    q, _, _, tables, lens = case
+    Q = q.shape[1]
+    lim = lens.long()[:, None] - (Q - 1 - torch.arange(Q, device=q.device))
+    return lim.clamp(max=tables.shape[1] * case[1].shape[1])
+
+
+def time_prefill(case) -> dict:
+    """B2's kernel, plain and library times on one case, and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    q, kp, vp, tables, lens = case
+    B, Q, H, D = q.shape
+    KV = kp.shape[2]
+    kd, vd = dense_view(case)
+    lim = row_limits(case)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, None]
+            < lim[:, :, None])[:, None]                       # (B,1,Q,S)
+    qh = q.transpose(1, 2)                                    # (B,H,Q,D)
+    res = {
+        "ms": time_ms(lambda: ops.paged_prefill_attention(*case)),
+        "wrapper_host_ms": host_ms(lambda: ops.paged_prefill_attention(*case)),
+        "plain_ms": time_ms(lambda: ref.paged_prefill_attention_ref(*case)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kd, vd, attn_mask=mask, enable_gqa=True)),
+    }
+    span = lim.max(dim=1).values.clamp(min=0)                 # per slot
+    n_tok = int(span.sum())
+    nbytes = (q.numel() * q.element_size() * 2                # q in, out
+              + 2 * n_tok * KV * D * kp.element_size()        # K and V read
+              + int(sum(-(-int(x) // kp.shape[1]) for x in span)) * 4
+              + B * 4)                                        # tables, lengths
+    flops = 4 * H * D * int(lim.clamp(min=0).sum())           # QK and PV
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    res.update(bytes=nbytes, flops=flops,
+               shape=f"B={B} Q={Q} H={H} KV={KV} D={D} T={kp.shape[1]} "
+                     f"lengths={lens.tolist()}")
+    return res
+
+
+def phase_prefill_kernel(b1_main) -> dict:
+    """Phase 3b: B2 against its plain version at the slice's shapes
+    (chunked prefill B=1, Q=64; verify B=8, Q=5) and edges, Q=1 and
+    every verify row bitwise equal to B1; times of the prefill shape,
+    with the verify shape's beside them."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import ops
+
+    H, KV, D, T = 32, 8, 128, 16
+    bf = torch.bfloat16
+    def rows_are_b1(name, case, got):
+        """Every query row of a B2 output is B1 at that row's limit."""
+        q, kp, vp, tables, lens = case
+        Q = q.shape[1]
+        for qi in range(Q):
+            one = ops.paged_attention(q[:, qi].contiguous(), kp, vp, tables,
+                                      lens - (Q - 1 - qi))
+            if not torch.equal(one, got[:, qi]):
+                raise AssertionError(
+                    f"B2 {name}: row {qi} differs from B1 at its limit in "
+                    f"{int((one != got[:, qi]).sum())} elements")
+        log(f"[kernel] B2 {name}: every row bitwise equal to B1 at its "
+            f"limit")
+
+    errs = []
+    chunks = {}
+    for start, nb in ((0, None), (37, None), (960, 64), (960, 63)):
+        what = (f"chunked prefill B=1 Q=64 start={start}" + (
+            f" (padded final chunk past the {nb * T}-position table)"
+            if nb == 63 else ""))
+        case = paged_case(1, H, KV, D, T, [start + 64], dtype=bf, q_len=64,
+                          seed=10 + start % 7, nb=nb)
+        err, got = check_case(what, case, "bf16", prefill=True)
+        errs.append(err)
+        chunks[(start, nb)] = case
+        rows_are_b1(what, case, got)
+
+    r = np.random.default_rng(0)
+    lengths3 = r.integers(1, 2049, 8)
+    lengths3[0], lengths3[-1] = 1, 2048
+    verify = paged_case(8, H, KV, D, T, lengths3 + 4, dtype=bf, q_len=5,
+                        seed=20)
+    what = f"verify B=8 Q=5 lengths={(lengths3 + 4).tolist()}"
+    err, got = check_case(what, verify, "bf16", prefill=True)
+    errs.append(err)
+    rows_are_b1("verify", verify, got)
+    # Q=1 is B1, bit for bit.
+    q, kp, vp, tables, lens = b1_main
+    one = ops.paged_prefill_attention(q[:, None].contiguous(), kp, vp,
+                                      tables, lens)
+    if not torch.equal(one[:, 0], ops.paged_attention(*b1_main)):
+        raise AssertionError("B2 at Q=1 differs from B1")
+    log("[kernel] B2 at Q=1 bitwise equal to B1 on B1's main case")
+
+    errs.append(check_case(
+        "G=1 (H=KV=8) Q=7", paged_case(3, 8, 8, D, T, [7, 40, 300],
+                                       dtype=bf, q_len=7, seed=21),
+        "bf16", prefill=True)[0])
+    check_case("f32 q and pool Q=5",
+               paged_case(3, H, KV, D, T, [9, 130, 1024], q_len=5,
+                          dtype=torch.float32, seed=22), "f32", prefill=True)
+    errs.append(check_case(
+        "window across a block boundary (starts 14, 30, 46; Q=5)",
+        paged_case(3, H, KV, D, T, [19, 35, 51], dtype=bf, q_len=5,
+                   seed=23), "bf16", prefill=True)[0])
+    errs.append(check_case(
+        "smoke width (H=4, KV=2, D=16, T=4) Q=3",
+        paged_case(3, 4, 2, 16, 4, [3, 9, 32], dtype=bf, q_len=3, seed=24),
+        "bf16", prefill=True)[0])
+
+    main = time_prefill(chunks[(960, 64)])
+    vt = time_prefill(verify)
+    out = {
+        "name": "paged_prefill_attention",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": B2_REPLACES,
+        "launches": None,
+        "max_abs_err": max(errs),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "wrapper_host_ms": main["wrapper_host_ms"],
+        "shape": main["shape"],
+        "verify": vt,
+    }
+    for what, t in (("chunk", main), ("verify", vt)):
+        log(f"[kernel] B2 {what} ({t['shape']}): kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, library (sdpa with a causal "
+            f"mask on a gathered view) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
+            f"{t['flops']} FLOP); the wrapper's host time per call "
+            f"{t['wrapper_host_ms']:.4f} ms")
     return out
 
 
@@ -266,6 +492,11 @@ def drive(engine, mix, *, eos=None, late_from=None):
 
 
 def phase_ladder(device="cuda") -> dict:
+    """Smoke-width qwen3-8b on the card: every rung, chunked prefill on
+    O5 / O6-gather / O6-kernel with chunks 3 and 8, and O7 with the
+    smollm-360m smoke drafter (K = 2, 4; gather and kernel verify), all
+    with the O5 greedy tokens; and a self-draft run that must accept
+    every draft."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke
@@ -279,32 +510,73 @@ def phase_ladder(device="cuda") -> dict:
     rng = np.random.default_rng(1)
     mix = [(rng.integers(1, cfg.vocab, int(rng.integers(1, 12))).tolist(),
             int(rng.integers(1, 8))) for _ in range(10)]
+    pool = dict(kv_block_size=4, kv_pool_blocks=20)
     rungs = {
         "O5": dict(level=OptLevel.O5),
         "O2": dict(level=OptLevel.O2),
         "O4": dict(level=OptLevel.O4),
-        "O6-gather": dict(level=OptLevel.O6, kv_block_size=4,
-                          kv_pool_blocks=20),
-        "O6-kernel": dict(level=OptLevel.O6, kv_block_size=4,
-                          kv_pool_blocks=20, paged_attn="kernel"),
+        "O6-gather": dict(level=OptLevel.O6, **pool),
+        "O6-kernel": dict(level=OptLevel.O6, paged_attn="kernel", **pool),
     }
+    for chunk in (3, 8):
+        rungs[f"O5 chunk {chunk}"] = dict(level=OptLevel.O5,
+                                          prefill_chunk=chunk)
+        rungs[f"O6-gather chunk {chunk}"] = dict(level=OptLevel.O6,
+                                                 prefill_chunk=chunk, **pool)
+        rungs[f"O6-kernel chunk {chunk}"] = dict(
+            level=OptLevel.O6, paged_attn="kernel", prefill_chunk=chunk,
+            **pool)
+    for k in (2, 4):
+        for attn in ("gather", "kernel"):
+            rungs[f"O7-{attn} K={k}"] = dict(
+                level=OptLevel.O7, paged_attn=attn, draft_k=k,
+                draft_model="smollm-360m", **pool)
 
     def run(rung, **kw):
         eng = DecodeEngine(model, params, batch_size=4, max_seq=32,
                            config=BestEffortConfig(**rungs[rung]))
-        return drive(eng, mix, **kw)
+        return eng, drive(eng, mix, **kw)
 
-    first = run("O5")
+    first = run("O5")[1]
     eos = {k: g[len(g) // 2] for k, g in enumerate(first)
            if k % 2 == 0 and len(g) > 1}
-    ref = run("O5", eos=eos, late_from=6)
+    ref = run("O5", eos=eos, late_from=6)[1]
+    spec = {}
     for rung in rungs:
-        got = run(rung, eos=eos, late_from=6)
+        eng, got = run(rung, eos=eos, late_from=6)
         if got != ref:
             raise AssertionError(f"ladder: {rung} tokens {got} != O5 {ref}")
-        log(f"[ladder] {rung}: {sum(map(len, got))} tokens identical to O5")
+        what = ""
+        if "chunk" in rung and eng.prefill_mode != "chunked":
+            raise AssertionError(f"ladder: {rung} ran {eng.prefill_mode}")
+        if rung.startswith("O7"):
+            if eng.spec_mode != "draft":
+                raise AssertionError(f"ladder: {rung} ran spec "
+                                     f"{eng.spec_mode}")
+            spec[rung] = eng.spec_stats
+            what = (f" (accept_rate {spec[rung]['accept_rate']:.3f}, "
+                    f"{spec[rung]['drafted']} drafted)")
+        log(f"[ladder] {rung}: {sum(map(len, got))} tokens identical to "
+            f"O5{what}")
+
+    for attn in ("gather", "kernel"):
+        eng = DecodeEngine(model, params, batch_size=4, max_seq=32,
+                           config=BestEffortConfig(
+                               level=OptLevel.O7, paged_attn=attn,
+                               draft_k=4, **pool),
+                           draft_model=model, draft_params=params)
+        got = drive(eng, mix, eos=eos, late_from=6)
+        st = eng.spec_stats
+        if got != ref or st["accept_rate"] != 1.0:
+            raise AssertionError(f"ladder: O7-{attn} self-draft: accept_rate "
+                                 f"{st['accept_rate']}, tokens equal to O5: "
+                                 f"{got == ref}")
+        spec[f"O7-{attn} self-draft K=4"] = st
+        log(f"[ladder] O7-{attn} self-draft K=4: accept_rate 1.0, "
+            f"{st['eff_tok_per_step']:.2f} tokens per window, tokens "
+            f"identical to O5")
     return {"requests": len(mix), "tokens": sum(map(len, ref)),
-            "rungs": list(rungs)}
+            "rungs": list(rungs), "spec": spec}
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +684,7 @@ def profile_ticks(model, params, reqs, *, B, max_seq, T, pool_blocks,
         if us:
             by_name[ev.key] = us / 1e3 / ticks
     busy = sum(by_name.values())
-    paged = sum(v for k, v in by_name.items() if "paged_decode_kernel" in k)
+    paged = sum(v for k, v in by_name.items() if "paged_rows_kernel" in k)
     return {"ticks": ticks, "after_ticks": warm, "wall_ms_per_tick": wall_ms,
             "device_ms_per_tick": busy if busy else None,
             "idle_share": 1 - busy / wall_ms if busy else None,
@@ -431,6 +703,172 @@ def first_layers(cfg, params, n: int):
 
     return (dataclasses.replace(cfg, n_layers=n),
             dict(params, layers=cut(params["layers"])))
+
+
+def serve_counted(engine, reqs) -> dict:
+    """Submit ``reqs`` to ``engine`` and tick it to the end, recording
+    the tick at which each request's first token lands (TTFT in ticks;
+    its TTFT in ms is the request's own stamps, all submitted at once)."""
+    import torch
+    from repro_torch.serving import Request
+
+    objs = [Request(prompt=list(p), max_new_tokens=n) for p, n in reqs]
+    sync = (torch.cuda.synchronize if engine.device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for r in objs:
+        engine.submit(r)
+    ticks, first = 0, {}
+    while True:
+        stepped = engine.step()
+        ticks += stepped
+        for r in objs:
+            if r.generated and r.rid not in first:
+                first[r.rid] = ticks
+        if not stepped and not engine.queue:
+            break
+    sync()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.generated) for r in objs)
+    return {"ticks": ticks, "dispatches": engine.n_steps, "wall_s": wall,
+            "tokens": tokens, "tok_per_s": tokens / wall,
+            "ms_per_tick": wall / ticks * 1e3,
+            "ttft_ticks": [first[r.rid] for r in objs],
+            "ttft_ms": [r.ttft_s * 1e3 for r in objs],
+            "generated": [list(r.generated) for r in objs]}
+
+
+def _pool(model, n_rows: int, T: int) -> dict:
+    import torch
+
+    cfg = model.cfg
+    shape = (cfg.n_layers, n_rows, T, cfg.n_kv_heads, cfg.head_dim)
+    return {k: torch.zeros(shape, dtype=torch.bfloat16, device=model.device)
+            for k in "kv"}
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def teacher_forced_chunks(model, params, *, P=150, C=64, T=16,
+                          seed=0) -> dict:
+    """``paged_prefill_step`` (kernel B2) logits at each chunk's last real
+    row — the last chunk padded — against the kernel decode step (B1)
+    fed the same prompt one token at a time, over the same table; and
+    the chunk step with B2's plain version in its place against the same
+    decode logits, the drift the kernel is judged by."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.models import attention
+
+    cfg, dev = model.cfg, model.device
+    r = np.random.default_rng(seed)
+    toks = torch.tensor(r.integers(1, cfg.vocab, P), device=dev)
+    nb = -(-(P + C) // T)
+    tables = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)[None]
+    starts = list(range(0, P, C))
+    lasts = [min(st + C, P) - 1 for st in starts]
+
+    def chunks():
+        pool, out = _pool(model, nb + 1, T), []
+        for st in starts:
+            n = min(C, P - st)
+            tk = torch.zeros((1, C), dtype=torch.long, device=dev)
+            tk[0, :n] = toks[st:st + n]
+            lg, pool = model.paged_prefill_step(
+                params, pool, tables, tk, torch.tensor([st], device=dev),
+                torch.tensor([n - 1], device=dev))
+            out.append(lg)
+        return torch.cat(out)
+
+    kern = chunks()
+    kernel_fn = attention.paged_prefill_attention
+    attention.paged_prefill_attention = ref.paged_prefill_attention_ref
+    try:
+        plain = chunks()
+    finally:
+        attention.paged_prefill_attention = kernel_fn
+    pool, dec = _pool(model, nb + 1, T), []
+    for p in range(P):
+        lg, pool = model.paged_decode_step(
+            params, pool, tables, toks[p:p + 1][None],
+            torch.tensor([p], device=dev))
+        if p in lasts:
+            dec.append(lg)
+    dec = torch.cat(dec)
+    if not all(torch.isfinite(x).all() for x in (kern, plain, dec)):
+        raise AssertionError("chunked prefill: non-finite logits")
+    return {"layers": cfg.n_layers, "prompt": P, "chunk": C,
+            "chunk_lasts": lasts,
+            "max_rel_logit_diff": {"kernel_vs_decode": _rel(kern, dec),
+                                   "plain_vs_decode": _rel(plain, dec),
+                                   "kernel_vs_plain": _rel(kern, plain)},
+            "argmax_agree": int((kern.argmax(-1) == dec.argmax(-1)).sum()),
+            "argmax_total": len(lasts)}
+
+
+def teacher_forced_verify(model, params, *, B=8, W=5, T=16, max_seq=1024,
+                          seed=0) -> dict:
+    """Where verify rows and decode rows part: one ``paged_verify_step``
+    (B2) over a W-token window against W kernel decode steps (B1) fed the
+    same tokens, over the same random KV prefix; per row, the logits'
+    relative difference, how many logits differ in bits and whether the
+    argmax agrees.  Beside it, each GEMM shape of a layer and the norm
+    applied to M = B*W rows against the same B rows alone: the bits that
+    differ there are what the window's wider products change."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import rms_norm
+
+    cfg, dev = model.cfg, model.device
+    r = np.random.default_rng(seed)
+    prefix = r.integers(1, max_seq - W, B)
+    nb = -(-max_seq // T)
+    R = 1 + B * nb
+    tables = torch.arange(1, R, dtype=torch.int32, device=dev).reshape(
+        B, nb)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool_v = _pool(model, R, T)
+    for k in "kv":
+        pool_v[k].copy_(torch.randn(pool_v[k].shape, generator=g,
+                                    device=dev))
+    pool_d = {k: v.clone() for k, v in pool_v.items()}
+    toks = torch.tensor(r.integers(1, cfg.vocab, (B, W)), device=dev)
+    start = torch.tensor(prefix, device=dev)
+    lv, _ = model.paged_verify_step(params, pool_v, tables, toks, start)
+    rows = []
+    for j in range(W):
+        ld, _ = model.paged_decode_step(params, pool_d, tables,
+                                        toks[:, j:j + 1], start + j)
+        rows.append({"row": j, "rel": _rel(lv[:, j], ld),
+                     "logits_differing": int((lv[:, j] != ld).sum()),
+                     "argmax_agree": int((lv[:, j].argmax(-1)
+                                          == ld.argmax(-1)).sum())})
+    lp, d = params["layers"], cfg.d_model
+    shapes = {"wq": lp["attn"]["wq"][0].reshape(d, -1),
+              "wk": lp["attn"]["wk"][0].reshape(d, -1),
+              "wo(attn)": lp["attn"]["wo"][0].reshape(-1, d),
+              "wi": lp["mlp"]["wi"][0], "wo(mlp)": lp["mlp"]["wo"][0]}
+    probe = {}
+    for name, w in shapes.items():
+        x = torch.randn((B * W, w.shape[0]), generator=g,
+                        device=dev).to(w.dtype)
+        wide = (x @ w)[::W]                  # row j=0 of each slot
+        alone = x[::W].contiguous() @ w
+        probe[name] = {"M": [B * W, B], "N": w.shape[1], "K": w.shape[0],
+                       "elements_differing": int((wide != alone).sum()),
+                       "of": wide.numel()}
+    nw = params["final_norm"]
+    x = torch.randn((B, W, cfg.d_model), generator=g, device=dev).to(
+        nw.dtype)
+    wide = rms_norm(x, nw)[:, :1]
+    alone = rms_norm(x[:, :1].contiguous(), nw)
+    probe["rms_norm"] = {"elements_differing": int((wide != alone).sum()),
+                         "of": wide.numel()}
+    return {"rows": rows, "probe": probe, "prefix": prefix.tolist()}
 
 
 def phase_full(card: str) -> dict:
@@ -483,11 +921,13 @@ def phase_full(card: str) -> dict:
     pool_blocks = sum(blocks_for(len(p) + n, T) for p, n in reqs)
     torch.cuda.reset_peak_memory_stats()
     ops.paged_attention.launches = 0
+    ops.paged_prefill_attention.launches = 0
     out = serve_demo(cfg, batch_size=B, max_seq=max_seq, n_requests=n_req,
                      level=OptLevel.O6, paged_attn="kernel",
                      kv_block_size=T, kv_pool_blocks=pool_blocks,
                      params=params, **kw)
     launches = ops.paged_attention.launches
+    b2_launches = ops.paged_prefill_attention.launches
     peak = torch.cuda.max_memory_allocated()
     if out["paged_attn"] != "kernel":
         raise AssertionError(f"full width: served through "
@@ -495,6 +935,9 @@ def phase_full(card: str) -> dict:
     if launches != cfg.n_layers * out["ticks"]:
         raise AssertionError(f"full width: {launches} kernel launches, want "
                              f"{cfg.n_layers} x {out['ticks']} ticks")
+    if b2_launches:
+        raise AssertionError(f"full width: the prestaged run launched B2 "
+                             f"{b2_launches} times, want 0")
     fin = out["finished"]
     if len(fin) != n_req or any(len(r.generated) != 32 for r in fin):
         raise AssertionError("full width: not every request got 32 tokens")
@@ -519,7 +962,8 @@ def phase_full(card: str) -> dict:
         "ticks": out["ticks"], "tokens": out["tokens"],
         "wall_s": out["wall_s"], "tok_per_s": out["tok_per_s"],
         "ms_per_tick": out["wall_s"] / out["ticks"] * 1e3,
-        "kernel_launches": launches, "peak_bytes": peak,
+        "kernel_launches": launches, "b2_launches": b2_launches,
+        "peak_bytes": peak,
         "pool": out["pool"], "teacher_forced": tf, "profile": prof,
     }
     log(f"[full] serve O6/kernel on {card}: {n_req} requests (prompts "
@@ -529,7 +973,167 @@ def phase_full(card: str) -> dict:
         f"kernel launches {launches} = {cfg.n_layers} x {out['ticks']}, "
         f"peak {peak / 2**30:.2f} GiB, pool {out['pool']['pool_rows']} rows "
         f"x {T} tokens ({out['pool']['pool_mb']:.1f} MiB)")
+    torch.cuda.empty_cache()
+    geo = dict(B=B, max_seq=max_seq, T=T, pool_blocks=pool_blocks)
+    prestaged = [g for _, g in sorted((r.rid, r.generated) for r in fin)]
+    res["chunked"] = run_chunked(model, params, cut_cfg, cut_params, reqs,
+                                 prestaged_tokens=prestaged, **geo)
+    res["spec"] = run_spec(model, params, reqs,
+                           chunked_tokens=res["chunked"]["generated"], **geo)
     return res
+
+
+def _same_tokens(a, b) -> list:
+    """[greedy tokens equal position by position, tokens in ``b``]."""
+    return [sum(x == y for ga, gb in zip(a, b) for x, y in zip(ga, gb)),
+            sum(len(g) for g in b)]
+
+
+def run_chunked(model, params, cut_cfg, cut_params, reqs, *, prestaged_tokens,
+                B, max_seq, T, pool_blocks, C=64) -> dict:
+    """Run (d): chunked prefill at ``prefill_chunk=C`` on O6-kernel, with
+    B2 launches = layers x chunk dispatches and B1 launches = layers x
+    decode dispatches, the share of greedy tokens equal to run (b)'s
+    (prompts fed a token per tick), and the teacher-forced
+    chunk-vs-decode check."""
+    import torch
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.models import get_model
+    from repro_torch.serving import DecodeEngine
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    tf = {"2": teacher_forced_chunks(get_model(cut_cfg), cut_params, C=C,
+                                     T=T),
+          "36": teacher_forced_chunks(model, params, C=C, T=T)}
+    for n, t in tf.items():
+        log(f"[full] (d) teacher-forced chunked prefill, {n} layers, prompt "
+            f"{t['prompt']} in chunks of {C} (last rows {t['chunk_lasts']}): "
+            f"max |dlogit| / max |logit| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in t["max_rel_logit_diff"].items())
+            + f"; argmax agree {t['argmax_agree']}/{t['argmax_total']}")
+    if tf["2"]["max_rel_logit_diff"]["kernel_vs_decode"] > 2e-2:
+        raise AssertionError(f"(d) 2 layers: chunk-step logits differ from "
+                             f"the decode step's: {tf['2']}")
+    deep = tf["36"]["max_rel_logit_diff"]
+    if deep["kernel_vs_decode"] > max(0.15, 2 * deep["plain_vs_decode"]):
+        raise AssertionError(f"(d) 36 layers: the chunk step drifts from the "
+                             f"decode step beyond B2's plain version's "
+                             f"drift: {tf['36']}")
+    torch.cuda.empty_cache()
+
+    eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
+                       config=BestEffortConfig(
+                           level=OptLevel.O6, paged_attn="kernel",
+                           kv_block_size=T, kv_pool_blocks=pool_blocks,
+                           prefill_chunk=C))
+    torch.cuda.reset_peak_memory_stats()
+    ops.paged_attention.launches = 0
+    ops.paged_prefill_attention.launches = 0
+    out = serve_counted(eng, reqs)
+    b1, b2 = ops.paged_attention.launches, ops.paged_prefill_attention.launches
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    chunks = sum(-(-len(p) // C) for p, _ in reqs)
+    if eng.prefill_mode != "chunked":
+        raise AssertionError(f"(d) prefill ran {eng.prefill_mode}")
+    if b2 != L * chunks or b1 != L * out["dispatches"]:
+        raise AssertionError(f"(d) launches B2 {b2} (want {L} x {chunks} "
+                             f"chunks), B1 {b1} (want {L} x "
+                             f"{out['dispatches']} decode dispatches)")
+    if any(len(g) != n for g, (_, n) in zip(out["generated"], reqs)):
+        raise AssertionError("(d) not every request got its tokens")
+    out.update(launches={"paged_attention": b1,
+                         "paged_prefill_attention": b2},
+               chunk=C, chunk_dispatches=chunks, teacher_forced=tf,
+               equal_to_prestaged=_same_tokens(out["generated"],
+                                               prestaged_tokens))
+    log(f"[full] (d) chunked prefill C={C}, O6/kernel: {out['tokens']} "
+        f"tokens in {out['ticks']} ticks / {out['wall_s']:.2f} s = "
+        f"{out['tok_per_s']:.1f} tok/s ({out['ms_per_tick']:.2f} ms/tick); "
+        f"TTFT ticks {out['ttft_ticks']}, TTFT ms "
+        f"{[round(x, 1) for x in out['ttft_ms']]} (prompts "
+        f"{[len(p) for p, _ in reqs]}); launches B2 {b2} = {L} x {chunks} "
+        f"chunks, B1 {b1} = {L} x {out['dispatches']} decode dispatches; "
+        f"greedy tokens equal to (b)'s: {out['equal_to_prestaged'][0]}/"
+        f"{out['equal_to_prestaged'][1]}; peak "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
+             pool_blocks, K=4) -> dict:
+    """Run (e): O7 at ``draft_k=K`` on O6-kernel.  The published pair
+    qwen3-8b -> smollm-360m is not token-compatible at full scale, so
+    the target drafts for itself (its API and params); B2 launches =
+    layers x verify dispatches.  Reports acceptance, tokens per window,
+    tok/s, the share of greedy tokens equal to run (d)'s, and the
+    teacher-forced verify-vs-decode comparison that says where rows
+    differ."""
+    import torch
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.models.model_zoo import compatible_drafter
+    from repro_torch.serving import DecodeEngine
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    try:
+        compatible_drafter(cfg, "smollm-360m")
+    except ValueError as e:
+        log(f"[full] (e) qwen3-8b -> smollm-360m refused: {e}")
+    else:
+        raise AssertionError("(e) compatible_drafter accepted qwen3-8b -> "
+                             "smollm-360m at full scale")
+    tfv = teacher_forced_verify(model, params, B=B, W=K + 1, T=T,
+                                max_seq=max_seq)
+    log(f"[full] (e) teacher-forced verify window of {K + 1} vs decode, "
+        f"prefixes {tfv['prefix']}: " + "; ".join(
+            f"row {x['row']}: rel {x['rel']:.3e}, {x['logits_differing']} "
+            f"logits differ, argmax agree {x['argmax_agree']}/{B}"
+            for x in tfv["rows"]))
+    log("[full] (e) M = B*W rows vs B rows alone, elements differing: "
+        + "; ".join(f"{k} {v['elements_differing']}/{v['of']}"
+                    for k, v in tfv["probe"].items()))
+    torch.cuda.empty_cache()
+
+    eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
+                       config=BestEffortConfig(
+                           level=OptLevel.O7, paged_attn="kernel",
+                           kv_block_size=T, kv_pool_blocks=pool_blocks,
+                           draft_k=K),
+                       draft_model=model, draft_params=params)
+    if eng.spec_mode != "draft":
+        raise AssertionError(f"(e) speculation {eng.spec_mode}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.paged_attention.launches = 0
+    ops.paged_prefill_attention.launches = 0
+    out = serve_counted(eng, reqs)
+    b1, b2 = ops.paged_attention.launches, ops.paged_prefill_attention.launches
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if b2 % L or b1 % L or b1 // L + b2 // L != out["dispatches"]:
+        raise AssertionError(f"(e) launches B2 {b2}, B1 {b1}: want {L} x "
+                             f"the {out['dispatches']} verify and boundary "
+                             f"dispatches")
+    if b2 == 0:
+        raise AssertionError("(e) no verify window ran through B2")
+    if any(len(g) != n for g, (_, n) in zip(out["generated"], reqs)):
+        raise AssertionError("(e) not every request got its tokens")
+    same, total = _same_tokens(out["generated"], chunked_tokens)
+    st = eng.spec_stats
+    out.update(launches={"paged_attention": b1,
+                         "paged_prefill_attention": b2},
+               verify_dispatches=b2 // L, spec=st, draft_k=K,
+               equal_to_chunked=[same, total], teacher_forced=tfv)
+    log(f"[full] (e) O7 self-draft K={K}, O6/kernel: accept_rate "
+        f"{st['accept_rate']:.4f} ({st['accepted']}/{st['drafted']}), "
+        f"{st['eff_tok_per_step']:.3f} tokens per window, {out['tokens']} "
+        f"tokens in {out['ticks']} ticks / {out['wall_s']:.2f} s = "
+        f"{out['tok_per_s']:.1f} tok/s ({out['ms_per_tick']:.2f} ms/tick); "
+        f"TTFT ticks {out['ttft_ticks']}; greedy tokens equal to (d)'s: "
+        f"{same}/{total}; launches B2 {b2} = {L} x {b2 // L} verify "
+        f"dispatches, B1 {b1}; peak {out['peak_bytes'] / 2**30:.2f} GiB")
+    return out
 
 
 def _leaves(tree):
@@ -571,19 +1175,30 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {Path(path).name}: {line.strip()}")
 
-    kern = phase_kernel()
+    b1, b1_main = phase_kernel()
+    b2 = phase_prefill_kernel(b1_main)
+    del b1_main
     ladder = phase_ladder()
     full = phase_full(card)
-    kern["launches"] = full["kernel_launches"]
+    # Launches on the main path: B1 in run (b), B2 in run (d); each
+    # run's counts beside them.
+    runs = {"b": {"paged_attention": full["kernel_launches"],
+                  "paged_prefill_attention": full["b2_launches"]},
+            "d": full["chunked"]["launches"], "e": full["spec"]["launches"]}
+    for k in (b1, b2):
+        k["launches_by_run"] = {run: n[k["name"]] for run, n in runs.items()}
+    b1["launches"] = runs["b"]["paged_attention"]
+    b2["launches"] = runs["d"]["paged_prefill_attention"]
+    kerns = [b1, b2]
 
-    result = {"card": card, "kernels": [kern], "ladder": ladder,
+    result = {"card": card, "kernels": kerns, "ladder": ladder,
               "full": full, "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    print(json.dumps({"kernels": kerns}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,10 +6,13 @@ and numpy only — never ``jax`` and nothing of ``repro``: what it needs
 from a framework-free reference module (configs, the optimization
 ladder, the scheduler) it keeps as its own copy.
 
-Slice 1 (the main path): the dense ``qwen3-8b`` family served by
-``serving.engine.DecodeEngine`` at rungs O2, O4, O5 (contiguous cache)
-and O6 (paged KV pool, ``paged_attn="gather"|"kernel"``), with the
-paged-decode attention kernel written in CUDA for sm_90a
+What it serves: the dense ``qwen3-8b`` family through
+``serving.engine.DecodeEngine`` at rungs O2, O4, O5 (contiguous cache),
+O6 (paged KV pool, ``paged_attn="gather"|"kernel"``) and O7 (speculative
+decoding with a drafter), with prompts fed a token per tick or in chunks
+(``prefill_chunk``).  The paged attention kernels — one query per slot
+(decode) and a window of queries per slot (chunked prefill, verify) —
+are written in CUDA for sm_90a
 (``kernels/paged_attention/csrc/paged_attention.cu``).  Everything else
 raises ``NotImplementedError`` naming its ROADMAP item.
 

@@ -1,10 +1,12 @@
-"""Config registry of the port: only the archs this slice serves."""
+"""Config registry of the port: only the archs it serves — qwen3-8b and
+its speculative drafter smollm-360m."""
 
-from repro_torch.configs import qwen3_8b
+from repro_torch.configs import qwen3_8b, smollm_360m
 from repro_torch.configs.base import ArchConfig  # noqa: F401
 
 _MODULES = {
     "qwen3-8b": qwen3_8b,
+    "smollm-360m": smollm_360m,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -10,8 +10,9 @@ reference's:
   O2  +pipelining       O6  +paged scratchpad (KV blocks + tables)
   O3  +PE duplication   O7  +speculative decoding
 
-The port serves O2, O4, O5 and O6 on one device in this slice; the
-engine raises ``NotImplementedError`` for the others (see ROADMAP).
+The port serves O2 and up on one device (O3 records its degree clipped
+to that device); the engine raises ``NotImplementedError`` for O0/O1
+(see ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -75,8 +76,11 @@ class BestEffortConfig:
     ``max_seq`` reservation per slot); ``paged_attn`` the O6 attention
     implementation ("gather" re-materializes a dense view per tick,
     "kernel" runs the CUDA paged-decode kernel on the pool);
-    ``prefill_chunk`` > 0 asks for chunked prefill; ``kv_dtype`` the
-    stored pool dtype.
+    ``prefill_chunk`` > 0 asks for chunked prefill; ``draft_model`` /
+    ``draft_k`` name the O7 drafter arch and its window (no drafter,
+    ``draft_k == 0`` or a stochastic sampler leave O7 decoding plainly,
+    recorded in ``engine.spec_mode``); ``kv_dtype`` the stored pool
+    dtype.
     """
 
     level: OptLevel = OptLevel.O5
@@ -86,6 +90,8 @@ class BestEffortConfig:
     kv_pool_blocks: int = 0
     paged_attn: str = "gather"
     prefill_chunk: int = 0
+    draft_model: str = ""
+    draft_k: int = 4
     kv_dtype: str = "bf16"
 
     def __post_init__(self):

@@ -1,25 +1,45 @@
-// Paged decode attention for Hopper (sm_90a): single-query GQA attention
-// read straight off a paged KV block pool through per-slot block tables.
+// Paged attention for Hopper (sm_90a): GQA attention read straight off a
+// paged KV block pool through per-slot block tables, for one query per
+// slot (decode) or Q consecutive queries per slot (chunked prefill and
+// the speculative verify window).
 //
-// Replaces the Pallas TPU kernel
-//   src/repro/kernels/paged_attention/kernel.py:paged_attention_pallas
-//   (body _paged_attn_kernel, score helper _scores)
-// and computes what it computes, not block by block:
+// Replaces the Pallas TPU kernels
+//   B1 src/repro/kernels/paged_attention/kernel.py:paged_attention_pallas
+//      (body _paged_attn_kernel, score helper _scores)
+//   B2 src/repro/kernels/paged_attention/kernel.py:
+//      paged_prefill_attention_pallas (body _paged_prefill_kernel)
+// and computes what they compute, not block by block:
 //
-//   q       (B, H, D)       bf16 or f32 (the compute dtype dt)
+//   q       (B, Q, H, D)    bf16 or f32 (the compute dtype dt); B1: Q = 1
 //   k/v pool (R, T, KV, D)  bf16 or f32, row 0 the NULL block
 //   tables  (B, nb) int32   physical pool row of each logical block
-//   lengths (B,) int32      valid positions per slot
-//   out     (B, H, D)       dt
+//   lengths (B,) int32      valid positions per slot (start + Q)
+//   out     (B, Q, H, D)    dt
 //
-// One thread block per (slot b, kv head h).  It stages the G = H / KV
-// query rows of its head group once, then walks the slot's positions
-// < lengths[b] in chunks of C positions (C = T * max(1, 64 / T): several
+// The G * Q query rows of kv head h are numbered g-major (row r is query
+// head h * G + r / Q at query position qi = r % Q), and row r attends the
+// positions below its own causal limit lengths[b] - (Q - 1 - qi).  Both
+// entry points launch one kernel: B1 is the Q = 1 case.
+//
+// One thread block per (slot b, kv head h, tile of R rows), R as many
+// rows as the register accumulator holds (kThreads * kMaxPairs / D: 8 at
+// D = 128, all G rows of a decode step at qwen3-8b).  The block stages
+// its rows' queries once, then walks the positions below its longest
+// row's limit in chunks of C positions (C = T * max(1, 64 / T): several
 // pool blocks per step, to spread each barrier and load latency over
 // more work).  For each chunk it reads the chunk's block-table entries
 // itself and stages the (C, D) K or V tile in shared memory.  Positions
-// past the length are never read, so whatever the NULL block or a stale
-// tail holds (even NaN) cannot leak.
+// past the tile's longest limit are never read, and a row never reads a
+// score or a V row past its own limit, so whatever the NULL block, a
+// stale tail or a later query's position holds (even NaN) cannot leak.
+//
+// Rows are independent: a row's bits depend only on its query, its limit
+// and the pool, never on Q, R or the other rows of its tile.  Every
+// per-row loop runs over exactly the positions below the row's limit, in
+// the same chunks (aligned at multiples of C) and the same lane order as
+// for any other tile, and a chunk wholly past a row's limit leaves its
+// statistics untouched.  So B2 at Q = 1 is B1, and every row of a verify
+// window equals B1 called with lengths = that row's limit, bit for bit.
 //
 // Two passes, with the reference's rounding sites (kernel.py _scores and
 // _accumulate, as XLA compiles them), so the kernel tracks the dense
@@ -34,21 +54,22 @@
 //
 // Tiles are staged with 16-byte loads, all of a thread's loads issued
 // before any is used.  Work split inside the block: one thread per
-// (query row, position) for
-// the dot products (4 partial sums for ILP, tile rows padded to D + 1
-// floats so the column reads are bank-conflict free), one warp per query
-// row for the softmax statistics, and a register accumulator per thread
-// over at most kMaxPairs (row, dim) pairs for PV.
+// (row, position) for the dot products (4 partial sums for ILP, tile rows
+// padded to D + 1 floats so the column reads are bank-conflict free), one
+// warp per row for the softmax statistics, and a register accumulator
+// per thread over at most kMaxPairs (row, dim) pairs for PV.
 //
 // Bound: the HBM bytes of the K/V positions attended.  At qwen3-8b width
 // that is 36 layers x 2 (K, V) x 8 kv heads x 128 x 2 B = 147 KB per
 // cached token per decode tick, read against 3.35 TB/s.  Known gaps of
-// this design, for later work: K is read twice (once per pass); there is
-// no split of a long sequence across blocks, so only B * KV blocks are
-// in flight (64 at batch 8, against 132 SMs) and the longest slot sets
-// the time; tiles are staged synchronously (no TMA, no cp.async
-// pipeline overlapping the next chunk's loads with this chunk's math) and
-// the dot products run on CUDA cores (no wgmma).
+// this design, for later work: K is read twice (once per pass), and each
+// row tile of a prefill chunk reads the slot's prefix again (32 tiles per
+// kv head for a 64-token chunk at qwen3-8b); there is no split of a long
+// sequence across blocks, so a decode step has only B * KV blocks in
+// flight (64 at batch 8, against 132 SMs) and the longest slot sets the
+// time; tiles are staged synchronously (no TMA, no cp.async pipeline
+// overlapping the next chunk's loads with this chunk's math) and the dot
+// products run on CUDA cores (no wgmma over the query rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,7 +80,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-// Register accumulator slots per thread: G * D <= kThreads * kMaxPairs.
+// Register accumulator slots per thread: R * D <= kThreads * kMaxPairs.
 constexpr int kMaxPairs = 8;
 // 16-byte loads a thread keeps in flight while staging a tile.
 constexpr int kLoads = 8;
@@ -165,47 +186,77 @@ __device__ __forceinline__ void stage_tile(
 }
 
 template <typename QT, typename KVT>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+__global__ void __launch_bounds__(kThreads) paged_rows_kernel(
     const QT* __restrict__ q, const KVT* __restrict__ k_pool,
     const KVT* __restrict__ v_pool, const int* __restrict__ tables,
-    const int* __restrict__ lengths, QT* __restrict__ out, int H, int KV,
-    int D, int T, int nb, int C, float scale) {
+    const int* __restrict__ lengths, QT* __restrict__ out, int Q, int H,
+    int KV, int D, int T, int nb, int C, int R, float scale) {
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int G = H / KV;
+  const int r0 = blockIdx.z * R;           // first row of this tile
+  const int nr = min(R, G * Q - r0);       // rows in this tile
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int Dp = D + 1;
 
   extern __shared__ float smem[];
-  float* q_s = smem;            // (G, D) query rows, f32
-  float* kv_s = q_s + G * D;    // (C, D + 1) staged K or V tile, f32
-  float* s_s = kv_s + C * Dp;   // (G, C) scores, then probabilities
-  float* m_s = s_s + G * C;     // (G,) running max
-  float* l_s = m_s + G;         // (G,) running denominator
-  int* rows_s = reinterpret_cast<int*>(l_s + G);  // (C / T,) pool rows
+  float* q_s = smem;            // (R, D) query rows, f32
+  float* kv_s = q_s + R * D;    // (C, D + 1) staged K or V tile, f32
+  float* s_s = kv_s + C * Dp;   // (R, C) scores, then probabilities
+  float* m_s = s_s + R * C;     // (R,) running max
+  float* l_s = m_s + R;         // (R,) running denominator
+  int* lim_s = reinterpret_cast<int*>(l_s + R);  // (R,) row limits
+  int* rows_s = lim_s + R;                       // (C / T,) pool rows
 
-  // Never walk past the table, whatever the length says.
-  const int span = min(lengths[b], nb * T);
+  // Row j of the tile is g-major row r0 + j of kv head h: query head
+  // h * G + r / Q at query position r % Q.  Its causal limit is
+  // lengths[b] - (Q - 1 - r % Q), never past the table.
+  const int length = lengths[b];
+  const int cap = nb * T;
+  auto row_limit = [&](int j) {
+    const int qi = (r0 + j) % Q;
+    return min(length - (Q - 1 - qi), cap);
+  };
+  auto row_offset = [&](int j) {
+    const int r = r0 + j;
+    const int g = r / Q;
+    const int qi = r - g * Q;
+    return ((static_cast<size_t>(b) * Q + qi) * H + h * G + g) *
+           static_cast<size_t>(D);
+  };
+  // The tile walks the positions its longest row attends; up to its
+  // shortest row's limit, every row attends every position.
+  int span = 0, common = cap;
+  for (int j = 0; j < nr; ++j) {
+    const int lim = row_limit(j);
+    span = max(span, lim);
+    common = min(common, lim);
+  }
   const int n_chunks = span > 0 ? (span + C - 1) / C : 0;
-  const size_t q_off =
-      (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_f32<QT>(q[q_off + i]);
-  if (tid < G) {
+
+  for (int i = tid; i < nr * D; i += kThreads) {
+    const int j = i / D;
+    q_s[i] = to_f32<QT>(q[row_offset(j) + (i - j * D)]);
+  }
+  if (tid < nr) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
+    lim_s[tid] = row_limit(tid);
   }
 
-  // This thread's (query row, dim) accumulator pairs i = tid + k *
-  // kThreads: offsets of the row in s_s and of the dim in a tile row.
+  // This thread's (row, dim) accumulator pairs i = tid + k * kThreads:
+  // offsets of the row in s_s and of the dim in a tile row.
   float acc[kMaxPairs];
   int s_off[kMaxPairs];
   int d_off[kMaxPairs];
+  int p_row[kMaxPairs];
 #pragma unroll
   for (int k = 0; k < kMaxPairs; ++k) {
     const int i = tid + k * kThreads;
     acc[k] = 0.f;
+    p_row[k] = i < nr * D ? i / D : -1;
     s_off[k] = (i / D) * C;
     d_off[k] = i % D;
   }
@@ -215,16 +266,21 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     for (int c = 0; c < n_chunks; ++c) {
       const int c0 = c * C;                 // a multiple of T
       const int nvalid = min(C, span - c0);
+      // Every row of the tile attends the whole chunk (always so for
+      // B1): the per-row limit checks below are then skipped.
+      const bool whole = common - c0 >= nvalid;
       if (tid < (nvalid + T - 1) / T) rows_s[tid] = tb[c0 / T + tid];
       __syncthreads();
       stage_tile<KVT>(kv_s, k_pool, rows_s, nvalid, h, KV, D, T);
       __syncthreads();
 
-      // Scores: one thread per (query row g, position t).
-      for (int i = tid; i < G * nvalid; i += kThreads) {
-        const int g = i / nvalid;
-        const int t = i - g * nvalid;
-        const float* qr = q_s + g * D;
+      // Scores: one thread per (row j, position t) inside the row's
+      // limit; positions past it are never read.
+      for (int i = tid; i < nr * nvalid; i += kThreads) {
+        const int j = i / nvalid;
+        const int t = i - j * nvalid;
+        if (!whole && t >= lim_s[j] - c0) continue;
+        const float* qr = q_s + j * D;
         const float* kr = kv_s + t * Dp;
         float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
         int d = 0;
@@ -235,46 +291,66 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
           p3 = fmaf(qr[d + 3], kr[d + 3], p3);
         }
         for (; d < D; ++d) p0 = fmaf(qr[d], kr[d], p0);
-        s_s[g * C + t] = round_to<QT>((p0 + p1) + (p2 + p3)) * scale;
+        s_s[j * C + t] = round_to<QT>((p0 + p1) + (p2 + p3)) * scale;
       }
       __syncthreads();
 
       if (phase == 0) {
-        // Online softmax statistics, one warp per query row.  The next
-        // chunk's first __syncthreads orders these reads of s_s before
-        // its score writes.
-        for (int g = warp; g < G; g += kWarps) {
-          const float* sr = s_s + g * C;
+        // Online softmax statistics, one warp per row, over the row's
+        // valid positions only (a chunk past its limit leaves m and l
+        // untouched).  The next chunk's first __syncthreads orders these
+        // reads of s_s before its score writes.
+        for (int j = warp; j < nr; j += kWarps) {
+          const int nv = min(nvalid, lim_s[j] - c0);
+          if (nv <= 0) continue;
+          const float* sr = s_s + j * C;
           float mb = kNegInf;
-          for (int t = lane; t < nvalid; t += 32) mb = fmaxf(mb, sr[t]);
-          const float m_prev = m_s[g];
+          for (int t = lane; t < nv; t += 32) mb = fmaxf(mb, sr[t]);
+          const float m_prev = m_s[j];
           const float m_new = fmaxf(m_prev, warp_max(mb));
           float sum = 0.f;
-          for (int t = lane; t < nvalid; t += 32) sum += expf(sr[t] - m_new);
+          for (int t = lane; t < nv; t += 32) sum += expf(sr[t] - m_new);
           sum = warp_sum(sum);
           if (lane == 0) {
-            l_s[g] = l_s[g] * expf(m_prev - m_new) + sum;
-            m_s[g] = m_new;
+            l_s[j] = l_s[j] * expf(m_prev - m_new) + sum;
+            m_s[j] = m_new;
           }
         }
       } else {
         // Probabilities, rounded to dt before the PV product.
-        for (int i = tid; i < G * nvalid; i += kThreads) {
-          const int g = i / nvalid;
-          const int t = i - g * nvalid;
+        for (int i = tid; i < nr * nvalid; i += kThreads) {
+          const int j = i / nvalid;
+          const int t = i - j * nvalid;
+          if (!whole && t >= lim_s[j] - c0) continue;
           const float p =
-              expf(s_s[g * C + t] - m_s[g]) / fmaxf(l_s[g], 1e-30f);
-          s_s[g * C + t] = round_to<QT>(p);
+              expf(s_s[j * C + t] - m_s[j]) / fmaxf(l_s[j], 1e-30f);
+          s_s[j * C + t] = round_to<QT>(p);
         }
         // K is no longer needed: stage the chunk's V rows in its place.
         stage_tile<KVT>(kv_s, v_pool, rows_s, nvalid, h, KV, D, T);
         __syncthreads();
-        for (int t = 0; t < nvalid; ++t) {
+        if (whole) {
+          for (int t = 0; t < nvalid; ++t) {
 #pragma unroll
-          for (int k = 0; k < kMaxPairs; ++k) {
-            if (tid + k * kThreads < G * D)
-              acc[k] = fmaf(s_s[s_off[k] + t], kv_s[t * Dp + d_off[k]],
-                            acc[k]);
+            for (int k = 0; k < kMaxPairs; ++k) {
+              if (p_row[k] >= 0)
+                acc[k] = fmaf(s_s[s_off[k] + t], kv_s[t * Dp + d_off[k]],
+                              acc[k]);
+            }
+          }
+        } else {
+          // A row stops at its own limit: V past it may be anything.
+          int nv[kMaxPairs];
+#pragma unroll
+          for (int k = 0; k < kMaxPairs; ++k)
+            nv[k] = p_row[k] >= 0 ? min(nvalid, lim_s[p_row[k]] - c0) : 0;
+          for (int t = 0; t < nvalid; ++t) {
+#pragma unroll
+            for (int k = 0; k < kMaxPairs; ++k) {
+              if (t < nv[k])
+                acc[k] = fmaf(s_s[s_off[k] + t], kv_s[t * Dp + d_off[k]],
+                              acc[k]);
+            }
           }
         }
         __syncthreads();
@@ -284,8 +360,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 
 #pragma unroll
   for (int k = 0; k < kMaxPairs; ++k) {
-    const int i = tid + k * kThreads;
-    if (i < G * D) out[q_off + i] = from_f32<QT>(acc[k]);
+    if (p_row[k] >= 0)
+      out[row_offset(p_row[k]) + d_off[k]] = from_f32<QT>(acc[k]);
   }
 }
 
@@ -297,52 +373,75 @@ inline int chunk_positions(int T) {
 
 template <typename QT, typename KVT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* tables, const int* lengths, void* out, int B, int H,
-           int KV, int D, int T, int nb, float scale, cudaStream_t stream) {
-  if (B == 0 || KV == 0) return 0;
+           const int* tables, const int* lengths, void* out, int B, int Q,
+           int H, int KV, int D, int T, int nb, float scale,
+           cudaStream_t stream) {
+  if (B == 0 || KV == 0 || Q == 0) return 0;
   const int G = H / KV;
-  if (G * D > kThreads * kMaxPairs || (D * sizeof(KVT)) % 16 != 0 ||
+  // Rows per tile: as many as the register accumulator holds.
+  const int R = min(G * Q, kThreads * kMaxPairs / D);
+  if (R < 1 || (D * sizeof(KVT)) % 16 != 0 ||
       reinterpret_cast<size_t>(k_pool) % 16 != 0 ||
       reinterpret_cast<size_t>(v_pool) % 16 != 0)
     return cudaErrorInvalidValue;
   const int C = chunk_positions(T);
-  const size_t smem = sizeof(float) * (G * D + C * (D + 1) + G * C + 2 * G) +
-                      sizeof(int) * (C / T);
+  const size_t smem = sizeof(float) * (R * D + C * (D + 1) + R * C + 2 * R) +
+                      sizeof(int) * (R + C / T);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<QT, KVT>,
+      paged_rows_kernel<QT, KVT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B, KV);
-  paged_decode_kernel<QT, KVT><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(B, KV, (G * Q + R - 1) / R);
+  paged_rows_kernel<QT, KVT><<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
       static_cast<const KVT*>(v_pool), tables, lengths,
-      static_cast<QT*>(out), H, KV, D, T, nb, C, scale);
+      static_cast<QT*>(out), Q, H, KV, D, T, nb, C, R, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const void* tables, const void* lengths, void* out, int B,
+             int Q, int H, int KV, int D, int T, int nb, int q_bf16,
+             int kv_bf16, float scale, void* stream) {
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_bf16 && kv_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, v_pool, tb, ln, out, B, Q, H, KV, D, T, nb, scale, s);
+  if (q_bf16)
+    return launch<__nv_bfloat16, float>(q, k_pool, v_pool, tb, ln, out, B,
+                                         Q, H, KV, D, T, nb, scale, s);
+  if (kv_bf16)
+    return launch<float, __nv_bfloat16>(q, k_pool, v_pool, tb, ln, out, B,
+                                         Q, H, KV, D, T, nb, scale, s);
+  return launch<float, float>(q, k_pool, v_pool, tb, ln, out, B, Q, H, KV,
+                              D, T, nb, scale, s);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  ``q_bf16`` / ``kv_bf16``
-// select bf16 (1) or f32 (0) for the query/output and the pool.  Returns
-// cudaGetLastError() after the launch: 0 on success.
+// Plain C entry points (loaded with ctypes).  ``q_bf16`` / ``kv_bf16``
+// select bf16 (1) or f32 (0) for the query/output and the pool.  Each
+// returns cudaGetLastError() after the launch: 0 on success.
+
+// B1: q and out (B, H, D), one query per slot, limit lengths[b].
 extern "C" int paged_attention_decode(
     const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* lengths, void* out, int B, int H,
     int KV, int D, int T, int nb, int q_bf16, int kv_bf16, float scale,
     void* stream) {
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, tb, ln,
-                                                 out, B, H, KV, D, T, nb,
-                                                 scale, s);
-  if (q_bf16)
-    return launch<__nv_bfloat16, float>(q, k_pool, v_pool, tb, ln, out, B,
-                                         H, KV, D, T, nb, scale, s);
-  if (kv_bf16)
-    return launch<float, __nv_bfloat16>(q, k_pool, v_pool, tb, ln, out, B,
-                                         H, KV, D, T, nb, scale, s);
-  return launch<float, float>(q, k_pool, v_pool, tb, ln, out, B, H, KV, D,
-                              T, nb, scale, s);
+  return dispatch(q, k_pool, v_pool, tables, lengths, out, B, 1, H, KV, D,
+                  T, nb, q_bf16, kv_bf16, scale, stream);
+}
+
+// B2: q and out (B, Q, H, D), Q queries per slot whose K/V are the last
+// Q of lengths[b] positions; query qi's limit is lengths[b] - (Q-1-qi).
+extern "C" int paged_attention_prefill(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* tables, const void* lengths, void* out, int B, int Q,
+    int H, int KV, int D, int T, int nb, int q_bf16, int kv_bf16,
+    float scale, void* stream) {
+  return dispatch(q, k_pool, v_pool, tables, lengths, out, B, Q, H, KV, D,
+                  T, nb, q_bf16, kv_bf16, scale, stream);
 }

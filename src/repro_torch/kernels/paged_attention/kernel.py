@@ -1,7 +1,9 @@
-"""ctypes binding of the CUDA paged-decode kernel (``csrc/``).
+"""ctypes binding of the CUDA paged-attention kernel (``csrc/``).
 
 The kernel replaces ``repro/kernels/paged_attention/kernel.py::
-paged_attention_pallas``; its design and bound are described in
+paged_attention_pallas`` (B1, ``launch``: one query per slot) and
+``paged_prefill_attention_pallas`` (B2, ``launch_prefill``: Q queries
+per slot); its design and bound are described in
 ``csrc/paged_attention.cu``.  The library is built with nvcc on first
 launch (``kernels/_build.py``), never at import.
 """
@@ -9,6 +11,7 @@ launch (``kernels/_build.py``), never at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -19,31 +22,48 @@ SOURCES = (Path(__file__).parent / "csrc" / "paged_attention.cu",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 6 + [_I, _I, ctypes.c_float, _P]
+_TAIL = [_I, _I, ctypes.c_float, _P]     # q_bf16, kv_bf16, scale, stream
 
 
-def _entry():
+@functools.cache
+def _entry(name: str, n_ints: int):
+    """The bound C entry point, resolved once: building or finding the
+    library hashes the sources, which a launch must not pay each time."""
     lib = _build.load_library("paged_attention", SOURCES)
-    fn = lib.paged_attention_decode
-    fn.argtypes = _ARGTYPES
+    fn = getattr(lib, name)
+    fn.argtypes = [_P] * 6 + [_I] * n_ints + _TAIL
     fn.restype = _I
     return fn
 
 
-def launch(q, k_pool, v_pool, tables, lengths, out, scale: float) -> None:
-    """Launch on the current stream; the caller has validated device,
-    dtypes, shapes and contiguity and allocated ``out``.  Raises if the
-    launch was refused."""
-    B, H, D = q.shape
-    _R, T, KV, _ = k_pool.shape
-    nb = tables.shape[1]
+def _run(fn, dims, q, k_pool, v_pool, tables, lengths, out, scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, KV, D, T, nb,
-        int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
-        scale, stream)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *dims,
+             int(q.dtype == torch.bfloat16),
+             int(k_pool.dtype == torch.bfloat16), scale, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
+
+
+def launch(q, k_pool, v_pool, tables, lengths, out, scale: float) -> None:
+    """B1 on the current stream: q and out (B, H, D).  The caller has
+    validated device, dtypes, shapes and contiguity and allocated
+    ``out``.  Raises if the launch was refused."""
+    B, H, D = q.shape
+    _R, T, KV, _ = k_pool.shape
+    _run(_entry("paged_attention_decode", 6),
+         (B, H, KV, D, T, tables.shape[1]),
+         q, k_pool, v_pool, tables, lengths, out, scale)
+
+
+def launch_prefill(q, k_pool, v_pool, tables, lengths, out,
+                   scale: float) -> None:
+    """B2 on the current stream: q and out (B, Q, H, D); same contract
+    as :func:`launch`."""
+    B, Q, H, D = q.shape
+    _R, T, KV, _ = k_pool.shape
+    _run(_entry("paged_attention_prefill", 7),
+         (B, Q, H, KV, D, T, tables.shape[1]),
+         q, k_pool, v_pool, tables, lengths, out, scale)

@@ -1,9 +1,10 @@
-"""Public wrapper: paged decode attention straight off a KV block pool.
+"""Public wrappers: paged attention straight off a KV block pool.
 
-``paged_attention`` checks what the kernel takes and raises on anything
-else, then launches the CUDA kernel for CUDA tensors — no fallback — or
-runs the plain version (``ref``) for CPU tensors.  Each kernel launch
-adds one to ``paged_attention.launches``.
+``paged_attention`` (one query per slot, kernel B1) and
+``paged_prefill_attention`` (Q queries per slot, kernel B2) check what
+the kernel takes and raise on anything else, then launch the CUDA kernel
+for CUDA tensors — no fallback — or run the plain version (``ref``) for
+CPU tensors.  Each kernel launch adds one to the wrapper's ``launches``.
 """
 
 from __future__ import annotations
@@ -11,22 +12,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.paged_attention import kernel
-from repro_torch.kernels.paged_attention.ref import (kernel_scale,
-                                                     paged_attention_ref)
+from repro_torch.kernels.paged_attention.ref import (
+    kernel_scale, paged_attention_ref, paged_prefill_attention_ref)
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _INTS = (torch.int32, torch.int64)
 # Shared memory a block may use on Hopper (227 KB), and the kernel's
 # (query row, dim) accumulator slots: 128 threads x 8 registers.
 _SMEM_LIMIT = 232_448
-_MAX_GD = 1024
+_MAX_RD = 1024
 
 
 def _check(q, k_pool, v_pool, tables, lengths):
-    if q.dim() != 3 or k_pool.dim() != 4:
-        raise ValueError(f"want q (B, H, D) and pools (R, T, KV, D); got "
-                         f"q {tuple(q.shape)}, k {tuple(k_pool.shape)}")
-    B, H, D = q.shape
+    """Raise unless the kernel takes these operands; q is (B, Q, H, D)."""
+    if q.dim() != 4 or k_pool.dim() != 4:
+        raise ValueError(f"want q (B, [Q,] H, D) and pools (R, T, KV, D); "
+                         f"got q {tuple(q.shape)}, k {tuple(k_pool.shape)}")
+    B, Q, H, D = q.shape
     _R, T, KV, Dk = k_pool.shape
     if H % KV != 0:
         raise ValueError(f"H={H} must be a multiple of KV={KV}")
@@ -54,14 +56,15 @@ def _check(q, k_pool, v_pool, tables, lengths):
             t.data_ptr() % 16 for t in (k_pool, v_pool)):
         raise ValueError(f"pool rows must be 16-byte multiples on 16-byte "
                          f"aligned pools (D={D}, {k_pool.dtype})")
-    G = H // KV
-    if G * D > _MAX_GD:
-        raise ValueError(f"G*D = {G * D} exceeds the kernel's {_MAX_GD} "
+    # A block holds R query rows, as many as its accumulator slots take.
+    R = min(H // KV * Q, _MAX_RD // D)
+    if R < 1:
+        raise ValueError(f"head_dim {D} exceeds the kernel's {_MAX_RD} "
                          f"register accumulator slots per block")
     C = T * max(1, 64 // T)
-    smem = 4 * (G * D + C * (D + 1) + G * C + 2 * G) + 4 * (C // T)
+    smem = 4 * (R * D + C * (D + 1) + R * C + 2 * R) + 4 * (R + C // T)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"G={G}, D={D}, T={T} need {smem} B of shared "
+        raise ValueError(f"R={R}, D={D}, T={T} need {smem} B of shared "
                          f"memory per block (limit {_SMEM_LIMIT})")
 
 
@@ -78,14 +81,12 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
     Returns (B, H, D) in q's dtype.  Every block the table references
     inside ``lengths[b]`` must be a real pool row.
     """
-    _check(q, k_pool, v_pool, tables, lengths)
+    if q.dim() != 3:
+        raise ValueError(f"want q (B, H, D), got {tuple(q.shape)}")
+    _check(q[:, None], k_pool, v_pool, tables, lengths)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, tables, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    tables = tables.to(torch.int32).contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
+    tables, lengths = _on_card(q, tables, lengths)
     out = torch.empty_like(q)
     kernel.launch(q, k_pool, v_pool, tables, lengths, out,
                   kernel_scale(q.shape[-1], q.dtype))
@@ -94,3 +95,42 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
 
 
 paged_attention.launches = 0
+
+
+def paged_prefill_attention(q, k_pool, v_pool, tables, lengths):
+    """Multi-query attention off a paged KV block pool: the chunked
+    prefill and speculative-verify query mode.
+
+    q: (B, Q, H, D) — Q consecutive query tokens per slot, bf16 or f32,
+        causally masked: query ``qi`` attends positions ``< lengths[b] -
+        (Q - 1 - qi)``, i.e. up to and including its own.
+    k_pool, v_pool, tables: as :func:`paged_attention`; the Q tokens'
+        K/V must already be appended at positions ``[start, start + Q)``.
+    lengths: (B,) int — ``start + Q`` per slot.
+
+    Returns (B, Q, H, D) in q's dtype.  Each row computes exactly what
+    :func:`paged_attention` computes at that row's limit, bit for bit.
+    """
+    _check(q, k_pool, v_pool, tables, lengths)
+    if q.device.type == "cpu":
+        return paged_prefill_attention_ref(q, k_pool, v_pool, tables,
+                                           lengths)
+    tables, lengths = _on_card(q, tables, lengths)
+    out = torch.empty_like(q)
+    kernel.launch_prefill(q, k_pool, v_pool, tables, lengths, out,
+                          kernel_scale(q.shape[-1], q.dtype))
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0
+
+
+def _on_card(q, tables, lengths):
+    """The int32 tables and lengths the kernel reads; raises unless q
+    lies on a CUDA device."""
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return (tables.to(torch.int32).contiguous(),
+            lengths.to(torch.int32).contiguous())

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the paged-decode kernel.
+"""Plain PyTorch versions of the paged-attention kernel (B1: one query
+per slot; B2: Q queries per slot, each with its own causal limit).
 
 A direct transcription of the kernel's two-pass math (and so of the
 Pallas reference's ``_scores`` / ``_accumulate`` as XLA compiles them),
@@ -16,8 +17,14 @@ while rounding the product disagrees on ~40% of them.  Positions past a slot's
 length (the NULL block, stale tails) never reach a product, so garbage —
 even NaN — cannot leak.
 
-The CPU tests hold this against the JAX kernel in interpret mode, and
-``chip_smoke.py`` holds the CUDA kernel against it on the card.
+``paged_prefill_attention_ref`` transcribes ``_paged_prefill_kernel``
+the same way: query ``qi`` of a slot attends positions ``idx < lengths -
+(Q - 1 - qi)``, and each row's scores are masked and V zeroed past its
+own limit, so nothing past a row's limit — not even a later query's
+freshly written K/V — reaches its sums.
+
+The CPU tests hold both against the JAX kernels in interpret mode, and
+``chip_smoke.py`` holds the CUDA kernel against them on the card.
 """
 
 from __future__ import annotations
@@ -68,3 +75,36 @@ def paged_attention_ref(q, k_pool, v_pool, tables, lengths):
     p = _round(e / l.clamp_min(1e-30), dt)
     o = torch.einsum("bkgs,bskd->bkgd", p, v)
     return o.reshape(B, H, D).to(dt)
+
+
+def paged_prefill_attention_ref(q, k_pool, v_pool, tables, lengths):
+    """q: (B, Q, H, D) — Q consecutive queries per slot whose K/V are the
+    last Q of ``lengths[b]`` positions; the rest as
+    :func:`paged_attention_ref`.  Returns (B, Q, H, D) in q's dtype; a
+    row whose limit is below 1 gets zeros."""
+    B, Q, H, D = q.shape
+    _, T, KV, _ = k_pool.shape
+    nb = tables.shape[1]
+    G = H // KV
+    dt = q.dtype
+    S = nb * T
+    rows = tables.reshape(-1).long()
+    k = k_pool.index_select(0, rows).reshape(B, S, KV, D).float()
+    v = v_pool.index_select(0, rows).reshape(B, S, KV, D).float()
+    qi = torch.arange(Q, device=q.device)
+    limit = lengths.to(q.device).long()[:, None] - (Q - 1 - qi)[None]
+    valid = (torch.arange(S, device=q.device)[None, None]
+             < limit[:, :, None])                              # (B, Q, S)
+    v = torch.where(valid[..., None, None], v[:, None], 0.0)  # (B,Q,S,KV,D)
+
+    qg = q.reshape(B, Q, KV, G, D).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k)
+    s = _round(s, dt) * kernel_scale(D, dt)
+    vmask = valid[:, None, None]
+    s = torch.where(vmask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(vmask, torch.exp(s - m), 0.0)
+    l = e.sum(dim=-1, keepdim=True)
+    p = _round(e / l.clamp_min(1e-30), dt)
+    o = torch.einsum("bkgqs,bqskd->bqkgd", p, v)
+    return o.reshape(B, Q, H, D).to(dt)

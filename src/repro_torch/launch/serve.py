@@ -6,10 +6,12 @@ the best-effort ladder (port of ``repro/launch/serve.py``).
 
 runs qwen3-8b at its published widths with random weights on the CUDA
 device; ``--smoke`` serves the reduced config and ``--device cpu`` runs
-on the CPU (the kernel path then uses the kernel's plain version).
-Flags for rungs and features outside this slice (O0/O1, O7 ``--draft``,
-``--prefill-chunk``, int8/fp8 ``--kv-dtype``) raise
-``NotImplementedError``.
+on the CPU (the kernel path then uses the kernels' plain versions).
+``--prefill-chunk N`` consumes prompts N tokens per tick; ``--level 7
+--draft smollm-360m`` decodes speculatively (the drafter must share the
+target's vocab at the scale served, so the pair works with ``--smoke``
+only).  Rungs and features outside the port (O0/O1, int8/fp8
+``--kv-dtype``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,13 +56,9 @@ def serve_demo(cfg, *, batch_size: int, max_seq: int, n_requests: int,
                draft_model: str = "", draft_k: int = 4,
                kv_dtype: str = "bf16", device=None, params=None) -> dict:
     """Serve the ``demo_requests`` drawn from ``seed`` and return the
-    finished requests with tick / wall / token counts.  ``params``
-    defaults to random weights drawn on the device from ``seed``."""
-    if draft_model:
-        raise NotImplementedError(
-            "O7 speculative decoding (--draft) is not ported yet "
-            "(ROADMAP A8)")
-    del draft_k
+    finished requests with tick / wall / token counts, the prefill mode
+    and the speculation counters.  ``params`` defaults to random weights
+    drawn on the device from ``seed``."""
     model = get_model(cfg, device=device)
     if params is None:
         gen = torch.Generator(device=model.device)
@@ -74,6 +72,7 @@ def serve_demo(cfg, *, batch_size: int, max_seq: int, n_requests: int,
                               kv_pool_blocks=kv_pool_blocks,
                               paged_attn=paged_attn,
                               prefill_chunk=prefill_chunk,
+                              draft_model=draft_model, draft_k=draft_k,
                               kv_dtype=kv_dtype),
                           policy=policy, sampler=sampler)
 
@@ -100,6 +99,9 @@ def serve_demo(cfg, *, batch_size: int, max_seq: int, n_requests: int,
         "paged_attn": engine.layout.attn_impl,
         "kv_dtype": kv_dtype,
         "pool": geometry,
+        "prefill_mode": engine.prefill_mode,
+        "spec_mode": engine.spec_mode,
+        "spec": engine.spec_stats,
     }
 
 
@@ -116,7 +118,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--level", type=int, default=5, choices=range(8),
                     help="OptLevel to build the engine at (the port serves "
-                         "2-6; 6 = paged KV blocks)")
+                         "2-7; 6 = paged KV blocks, 7 = speculative "
+                         "decoding — needs --draft)")
     ap.add_argument("--policy", default="fcfs",
                     choices=("fcfs", "spf", "deadline"))
     ap.add_argument("--sampler", default="greedy",
@@ -139,10 +142,19 @@ def main(argv=None):
                     choices=("bf16", "int8", "fp8"),
                     help="O6 pool stored dtype (only bf16 is ported)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill (not ported: must be 0)")
+                    help="chunked prefill: consume prompts in chunks of "
+                         "this many tokens, one chunk per tick, "
+                         "interleaved with decode (0 = one prompt token "
+                         "per tick; greedy tokens identical either way)")
     ap.add_argument("--draft", default="", dest="draft_model",
-                    help="O7 drafter arch (not ported)")
-    ap.add_argument("--draft-k", type=int, default=4)
+                    help="O7 drafter arch (e.g. smollm-360m): proposes "
+                         "--draft-k tokens per slot per tick for the "
+                         "target to verify in one batched forward; must "
+                         "share the target's vocab at the same smoke/full "
+                         "scale.  Empty disables speculation")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="speculation window: drafted tokens per slot per "
+                         "verify step (0 disables)")
     ap.add_argument("--expect-devices", type=int, default=0,
                     help="exit 1 unless the engine's placement landed on "
                          "exactly this many devices")
@@ -165,6 +177,15 @@ def main(argv=None):
         print(f"[serve] req {r.rid}: prompt[{r.n_prompt}] -> "
               f"{r.generated}")
     attn = f"/{out['paged_attn']}" if out["paged_attn"] else ""
+    if args.prefill_chunk:
+        attn += f"/prefill={out['prefill_mode']}({args.prefill_chunk})"
+    if out["spec_mode"] == "draft":
+        st = out["spec"]
+        attn += (f"/spec=K{st['draft_k']}({args.draft_model},"
+                 f"accept={st['accept_rate']:.2f},"
+                 f"eff={st['eff_tok_per_step']:.2f})")
+    elif args.level >= 7:
+        attn += "/spec=off"
     print(f"[serve] O{args.level}/{args.policy} "
           f"[{out['layout']}{attn} on {out['device']}]: "
           f"{len(out['finished'])} requests, {out['tokens']} new "

@@ -1,8 +1,11 @@
-"""Attention for the decode path: GQA with rope / qk-norm against a KV
-cache — dense (contiguous or gathered view) or straight off a paged pool.
+"""Attention for the serving path: GQA with rope / qk-norm against a KV
+cache — dense (contiguous or gathered view) or straight off a paged pool,
+for one token per slot (decode) or a window of C tokens per slot
+(chunked prefill, speculative verify).
 
-Port of ``repro/models/attention.py`` (``attn_defs``, ``decode_attention``
-and the bf16 branch of ``paged_decode_attention``).
+Port of ``repro/models/attention.py`` (``attn_defs``, ``decode_attention``,
+``chunk_prefill_attention`` and the bf16 branches of
+``paged_decode_attention`` and ``paged_chunk_prefill_attention``).
 Rounding sites are the reference's as XLA compiles them: scores come out
 of the qk product rounded to the compute dtype, are multiplied in
 float32 by the head-dim scale rounded to the compute dtype (JAX rounds
@@ -12,15 +15,20 @@ masked with -1e30, softmaxed in float32, and the probabilities are cast
 back to the compute dtype before the PV product.
 
 Caches are written IN PLACE (the reference returns new arrays): the
-current token's K/V lands at its slot's position before attention reads
-it.
+current tokens' K/V land at their slot's positions before attention
+reads them.  A window's padded tail writes at clipped positions, so
+several rows may write one position; each such write carries the value
+of the row that owns the position (``_window_rows``), so which of them
+lands — undefined for repeated indices on CUDA — cannot matter, and a
+pad row can never overwrite a real row's K/V.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_prefill_attention)
 from repro_torch.kernels.paged_attention.ref import kernel_scale
 from repro_torch.models.layers import PDef, rms_norm, rope
 
@@ -65,6 +73,40 @@ def _out_proj(o, wo):
     return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
 
 
+def _window_rows(x, positions):
+    """The rows of ``x`` (B, C, ...) to write at ``positions`` (B, C), the
+    window's clipped positions: row j's own, except that a row whose
+    position was clipped writes the row that owns the clipped position
+    (``positions - positions[:, :1]`` indexes it), so all writes to one
+    position are equal."""
+    src = (positions - positions[:, :1]).long()
+    src = src.reshape(*src.shape, *([1] * (x.dim() - 2))).expand_as(x)
+    return x.gather(1, src)
+
+
+def _dense_attend(q, ck, cv, positions, wo, *, n_heads, n_kv, head_dim):
+    """Attention of q (B, T, H, dh) at ``positions`` (B, T) against a
+    dense cache (B, S, KV, dh), positions past each row's own masked.
+    Returns (B, T, d)."""
+    B, T = positions.shape
+    dt = q.dtype
+    group = n_heads // n_kv
+    S = ck.shape[1]
+    # (B, T, KV, G, dh) -> (B, KV, G*T, dh): one GQA group per kv head.
+    qg = q.reshape(B, T, n_kv, group, head_dim).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(B, n_kv, group * T, head_dim)
+    s = qg @ ck.to(dt).permute(0, 2, 3, 1)                # (B, KV, G*T, S)
+    s = s.float() * kernel_scale(head_dim, dt)         # the kernel's scale
+    valid = (torch.arange(S, device=q.device)[None, None]
+             <= positions[:, :, None])                    # (B, T, S)
+    valid = valid[:, None, None].expand(B, 1, group, T, S)
+    s = torch.where(valid.reshape(B, 1, group * T, S), s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = p @ cv.to(dt).permute(0, 2, 1, 3)                 # (B, KV, G*T, dh)
+    o = o.reshape(B, n_kv, group, T, head_dim).permute(0, 3, 1, 2, 4)
+    return _out_proj(o.reshape(B, T, n_heads, head_dim), wo)
+
+
 def decode_attention(params, x, cache, positions, *, n_heads, n_kv,
                      head_dim, qk_norm=False, rope_theta=1e4):
     """Single-token attention against a dense per-slot KV cache.
@@ -74,9 +116,7 @@ def decode_attention(params, x, cache, positions, *, n_heads, n_kv,
     Positions past each slot's own are masked.  Returns (out (B, 1, d),
     cache).
     """
-    B, T, _ = x.shape
-    dt = x.dtype
-    group = n_heads // n_kv
+    B = x.shape[0]
     q, k, v = _project_qkv(params, x, positions[:, None], qk_norm=qk_norm,
                            rope_theta=rope_theta)
     ck, cv = cache["k"], cache["v"]
@@ -84,19 +124,34 @@ def decode_attention(params, x, cache, positions, *, n_heads, n_kv,
     pos = positions.long()
     ck[b_idx, pos] = k[:, 0].to(ck.dtype)                 # in place
     cv[b_idx, pos] = v[:, 0].to(cv.dtype)
-    S = ck.shape[1]
+    out = _dense_attend(q, ck, cv, positions[:, None], params["wo"],
+                        n_heads=n_heads, n_kv=n_kv, head_dim=head_dim)
+    return out, cache
 
-    # (B, T, KV, G, dh) -> (B, KV, G*T, dh): one GQA group per kv head.
-    qg = q.reshape(B, T, n_kv, group, head_dim).permute(0, 2, 3, 1, 4)
-    qg = qg.reshape(B, n_kv, group * T, head_dim)
-    s = qg @ ck.to(dt).permute(0, 2, 3, 1)                # (B, KV, G*T, S)
-    s = s.float() * kernel_scale(head_dim, dt)         # the kernel's scale
-    valid = torch.arange(S, device=x.device)[None] <= positions[:, None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(dt)
-    o = p @ cv.to(dt).permute(0, 2, 1, 3)                 # (B, KV, G*T, dh)
-    o = o.reshape(B, n_kv, group, T, head_dim).permute(0, 3, 1, 2, 4)
-    out = _out_proj(o.reshape(B, T, n_heads, head_dim), params["wo"])
+
+def chunk_prefill_attention(params, x, cache, positions, *, n_heads, n_kv,
+                            head_dim, qk_norm=False, rope_theta=1e4):
+    """Multi-token (prompt-chunk or verify-window) attention against a
+    dense KV cache — the qlen > 1 sibling of :func:`decode_attention`.
+
+    x: (B, C, d) — C consecutive tokens per slot; positions: (B, C) —
+    each token's cache index, clipped for a padded tail (whose writes
+    land at future positions, rewritten before first read, and whose
+    outputs the caller discards).  Each row's arithmetic is the decode
+    path's: per-row projections and rope, a masked f32 softmax over the
+    same cache rows.  Returns (out (B, C, d), cache), the cache written
+    in place.
+    """
+    B = x.shape[0]
+    q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm,
+                           rope_theta=rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    pos = positions.long()
+    ck[b_idx, pos] = _window_rows(k, positions).to(ck.dtype)   # in place
+    cv[b_idx, pos] = _window_rows(v, positions).to(cv.dtype)
+    out = _dense_attend(q, ck, cv, positions, params["wo"],
+                        n_heads=n_heads, n_kv=n_kv, head_dim=head_dim)
     return out, cache
 
 
@@ -133,3 +188,37 @@ def paged_decode_attention(params, x, kvs, tables, positions, *, n_heads,
     o = paged_attention(q[:, 0], ck, cv, tables,
                         (positions + 1).to(torch.int32))
     return _out_proj(o.to(dt), params["wo"])[:, None], kvs
+
+
+def paged_chunk_prefill_attention(params, x, kvs, tables, positions,
+                                  lengths, *, n_heads, n_kv, head_dim,
+                                  qk_norm=False, rope_theta=1e4,
+                                  kv_dtype="bf16"):
+    """Multi-token attention straight off the paged block pool — the
+    qlen > 1 sibling of :func:`paged_decode_attention`.
+
+    x: (B, C, d); kvs: (k, v) pool leaves (R, T, KV, dh); tables: (B, nb);
+    positions: (B, C) cache index per window token, clipped for the
+    padded tail (those writes go to in-reservation future positions or
+    the NULL block, both write-garbage-safe); lengths: (B,) UNCLIPPED
+    ``start + C``, so each real row's causal limit stays exact.  The
+    window's K/V are scattered into the pool through the tables in place,
+    then the multi-query paged kernel (B2) attends the whole prefix.
+    Returns (out (B, C, d), kvs).
+    """
+    if kv_dtype != "bf16":
+        raise NotImplementedError(
+            f"kv_dtype {kv_dtype!r} pools are not ported yet (ROADMAP A9)")
+    dt = x.dtype
+    ck, cv = kvs
+    T = ck.shape[1]
+    q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm,
+                           rope_theta=rope_theta)
+    pos = positions.long()
+    rows = tables.long().gather(1, pos // T)               # (B, C)
+    offs = pos % T
+    ck[rows, offs] = _window_rows(k, positions).to(ck.dtype)   # in place
+    cv[rows, offs] = _window_rows(v, positions).to(cv.dtype)
+    o = paged_prefill_attention(q.contiguous(), ck, cv, tables,
+                                lengths.to(torch.int32))
+    return _out_proj(o.to(dt), params["wo"]), kvs

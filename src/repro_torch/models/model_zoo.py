@@ -1,9 +1,10 @@
-"""Unified model API: family dispatch (port of ``repro/models/model_zoo.py``).
+"""Unified model API: family dispatch and drafter pairing (port of
+``repro/models/model_zoo.py``).
 
 ``get_model(cfg, device=None)`` returns a ``ModelAPI`` whose functions
 close over the arch config and the device (``None`` = CUDA).  Only the
-dense family is served in this slice; the chunked-prefill and
-speculative-verify hooks are ``None`` (ROADMAP A8).
+dense family is served; it has every hook: decode, chunked prefill and
+speculative verify, each dense and paged.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
@@ -31,10 +33,19 @@ class ModelAPI:
     # (params, pool, tables, tokens, positions) -> (logits, pool): the
     # serving O6 kernel path.
     paged_decode_step: Callable = None
-    # Not in this slice (chunked prefill / O7 verify, ROADMAP A8).
+    # Chunked prefill (params, cache, tokens (B, C), start (B,), last
+    # (B,)) -> (logits, cache): C prompt tokens per call, logits at each
+    # slot's ``last`` row.
     prefill_step: Callable = None
+    # Same straight off the paged pool through kernel B2:
+    # (params, pool, tables, tokens, start, last) -> (logits, pool).
     paged_prefill_step: Callable = None
+    # Speculative verify (params, cache, tokens (B, C), start (B,)) ->
+    # (logits (B, C, vocab_padded), cache): one forward over the pending
+    # token + C-1 drafts per slot, logits at every row.
     verify_step: Callable = None
+    # Same off the paged pool: (params, pool, tables, tokens, start) ->
+    # (logits (B, C, vocab_padded), pool).
     paged_verify_step: Callable = None
 
 
@@ -60,4 +71,66 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
         paged_decode_step=lambda params, pool, tables, tokens, positions,
         kv_dtype="bf16": mod.paged_decode_step(
             cfg, params, pool, tables, tokens, positions, kv_dtype=kv_dtype),
+        prefill_step=lambda params, cache, tokens, start, last:
+            mod.prefill_step(cfg, params, cache, tokens, start, last),
+        paged_prefill_step=lambda params, pool, tables, tokens, start, last,
+        kv_dtype="bf16": mod.paged_prefill_step(
+            cfg, params, pool, tables, tokens, start, last,
+            kv_dtype=kv_dtype),
+        verify_step=lambda params, cache, tokens, start:
+            mod.verify_step(cfg, params, cache, tokens, start),
+        paged_verify_step=lambda params, pool, tables, tokens, start,
+        kv_dtype="bf16": mod.paged_verify_step(
+            cfg, params, pool, tables, tokens, start, kv_dtype=kv_dtype),
     )
+
+
+# ---------------------------------------------------------------------------
+# Drafter pairing (speculative decoding)
+# ---------------------------------------------------------------------------
+
+# Known (target -> drafter) pairings: the small zoo arch that proposes
+# tokens for the big one.  A pairing is a candidate only: it still has to
+# pass ``compatible_drafter``'s vocab check at the scale it runs (the
+# smoke configs share a 256-token vocab; the full qwen3 and smollm
+# tokenizers differ, which the check rejects).
+DRAFTER_PAIRS = {
+    "qwen3-8b": "smollm-360m",
+    "mistral-large-123b": "smollm-360m",
+    "nemotron-4-340b": "smollm-360m",
+}
+
+
+def compatible_drafter(target, draft=None) -> ArchConfig:
+    """Resolve and validate the (drafter, target) pair for speculation.
+
+    ``target`` is an ArchConfig (or registry name); ``draft`` a registry
+    name / ArchConfig, defaulting to the ``DRAFTER_PAIRS`` entry.  A
+    string drafter resolves at the SAME scale as the target (smoke vs
+    full).  Verify compares the drafter's proposed token ids with the
+    target's argmax, so the two must share one token space: mismatched
+    vocabs raise ValueError naming both sizes."""
+    if isinstance(target, str):
+        target = get_config(target)
+    if draft is None:
+        try:
+            draft = DRAFTER_PAIRS[target.name]
+        except KeyError:
+            raise ValueError(
+                f"no known drafter pairing for target {target.name!r}; "
+                f"pass draft_model explicitly (pairs: {sorted(DRAFTER_PAIRS)})"
+            ) from None
+    if isinstance(draft, str):
+        try:
+            full = get_config(target.name)
+        except KeyError:
+            full = target
+        draft = get_smoke(draft) if target != full else get_config(draft)
+    if draft.vocab != target.vocab:
+        raise ValueError(
+            f"drafter {draft.name!r} (vocab {draft.vocab}) is not "
+            f"token-compatible with target {target.name!r} (vocab "
+            f"{target.vocab}): speculative verify compares token ids "
+            f"across the two models, so they must share one tokenizer/"
+            f"vocab")
+    return draft

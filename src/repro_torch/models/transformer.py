@@ -1,7 +1,9 @@
-"""Decoder-only dense transformer: param defs, init, KV cache, decode.
+"""Decoder-only dense transformer: param defs, init, KV cache, and the
+serving steps — decode, chunked prefill and speculative verify, each
+against a dense cache or straight off a paged pool.
 
-Port of the decode half of ``repro/models/transformer.py`` for the dense
-family.  Layer params are stacked on a leading L axis as in the
+Port of the serving half of ``repro/models/transformer.py`` for the
+dense family.  Layer params are stacked on a leading L axis as in the
 reference; its ``scan`` over layers becomes a Python loop over that
 axis.  Parameters are stored once in the compute dtype (the reference
 keeps float32 and casts at every use — the same bits, half the memory).
@@ -108,13 +110,21 @@ def cache_axes(cfg: ArchConfig) -> dict:
 # Decode
 # ---------------------------------------------------------------------------
 
-def _decode_layers(cfg: ArchConfig, params, kv_leaves, tokens, attn_body):
-    """Shared decode skeleton: embed -> layers -> final norm -> logits.
+def _decode_layers(cfg: ArchConfig, params, kv_leaves, tokens, attn_body,
+                   last=None, all_rows=False):
+    """Shared serving skeleton: embed -> layers -> final norm -> logits.
     ``attn_body(layer_params, normed_h, *layer_kv)`` is the pluggable
-    decode-attention hook (dense on a per-slot cache view, or the paged
-    kernel on the raw pool); ``kv_leaves`` are the stacked (L, ...) cache
-    leaves it writes in place, one layer view at a time."""
-    h = params["embedding"][tokens.long()]                # (B, 1, d)
+    attention hook (dense on a per-slot cache view, or the paged kernels
+    on the raw pool); ``kv_leaves`` are the stacked (L, ...) cache
+    leaves it writes in place, one layer view at a time.
+
+    ``tokens`` (B, C) may carry C >= 1 positions per slot.  ``last`` (B,)
+    picks the logits row per slot — a chunk's final REAL token, so a
+    padded final chunk still emits the right first token; ``None`` takes
+    row 0 (decode).  ``all_rows`` returns logits at every row (B, C,
+    vocab_padded) for speculative verify, projected one row at a time so
+    each (B, d) @ (d, vocab) product has the decode step's shape."""
+    h = params["embedding"][tokens.long()]                # (B, C, d)
     for l in range(cfg.n_layers):
         lp = layer_params(params, l)
         h = h + attn_body(lp, rms_norm(h, lp["attn_norm"]),
@@ -122,23 +132,54 @@ def _decode_layers(cfg: ArchConfig, params, kv_leaves, tokens, attn_body):
         h = h + mlp_apply(lp["mlp"], rms_norm(h, lp["mlp_norm"]),
                           cfg.mlp_kind)
     h = rms_norm(h, params["final_norm"])
-    return (h[:, 0] @ params["lm_head"]).float()
+    w = params["lm_head"]
+    if all_rows:
+        return torch.stack([(h[:, j].contiguous() @ w).float()
+                            for j in range(h.shape[1])], dim=1)
+    if last is None:
+        return (h[:, 0] @ w).float()
+    b_idx = torch.arange(h.shape[0], device=h.device)
+    return (h[b_idx, last.long()] @ w).float()
+
+
+def _window(start, C: int, horizon: int):
+    """Positions (B, C) of a C-token window at ``start`` (B,), clipped to
+    ``horizon`` (the padded tail of a final chunk, or a verify window
+    past the cache, lands on the last position), and the UNCLIPPED
+    lengths ``start + C`` that keep each real row's causal limit exact."""
+    pos = start[:, None] + torch.arange(C, device=start.device)[None]
+    return pos.clamp(0, horizon - 1), (start + C).to(torch.int32)
+
+
+def _dense_body(cfg: ArchConfig, attend, positions):
+    def attn_body(lp, hn, ck, cv):
+        out, _ = attend(
+            lp["attn"], hn, {"k": ck, "v": cv}, positions,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+        return out
+    return attn_body
+
+
+def _paged_window_body(cfg: ArchConfig, tables, positions, lengths,
+                       kv_dtype):
+    def attn_body(lp, hn, ck, cv):
+        out, _ = attn.paged_chunk_prefill_attention(
+            lp["attn"], hn, (ck, cv), tables, positions, lengths,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+            kv_dtype=kv_dtype)
+        return out
+    return attn_body
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, positions):
     """One decode step. tokens (B, 1) int; positions (B,) int.  The cache
     ({"k", "v"} of (L, B, S, KV, dh)) is written in place.  Returns
     (logits (B, vocab_padded) float32, cache)."""
-
-    def attn_body(lp, hn, ck, cv):
-        out, _ = attn.decode_attention(
-            lp["attn"], hn, {"k": ck, "v": cv}, positions,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
-        return out
-
-    logits = _decode_layers(cfg, params, (cache["k"], cache["v"]), tokens,
-                            attn_body)
+    logits = _decode_layers(
+        cfg, params, (cache["k"], cache["v"]), tokens,
+        _dense_body(cfg, attn.decode_attention, positions))
     return logits, cache
 
 
@@ -160,4 +201,69 @@ def paged_decode_step(cfg: ArchConfig, params, pool, tables, tokens,
 
     logits = _decode_layers(cfg, params, (pool["k"], pool["v"]), tokens,
                             attn_body)
+    return logits, pool
+
+
+def prefill_step(cfg: ArchConfig, params, cache, tokens, start, last):
+    """One prompt-chunk step against the dense cache: tokens (B, C) — C
+    consecutive prompt tokens per slot from cache position ``start``
+    (B,); ``last`` (B,) is the row of the chunk's final real token.
+    Returns (logits (B, vocab_padded) at the ``last`` rows, cache written
+    in place).  The padded tail of a final chunk rides along at clipped
+    positions; its logits rows are never selected."""
+    positions, _ = _window(start, tokens.shape[1], cache["k"].shape[2])
+    logits = _decode_layers(
+        cfg, params, (cache["k"], cache["v"]), tokens,
+        _dense_body(cfg, attn.chunk_prefill_attention, positions),
+        last=last)
+    return logits, cache
+
+
+def paged_prefill_step(cfg: ArchConfig, params, pool, tables, tokens,
+                       start, last, kv_dtype: str = "bf16"):
+    """Prompt-chunk step straight off the paged block pool: the chunk's
+    K/V is scattered into pool blocks through the slot's table and the
+    multi-query paged kernel (B2) attends the whole prefix — the dense
+    view is never built.  Same contract as :func:`prefill_step` plus the
+    tables.  Returns (logits, pool)."""
+    T = pool["k"].shape[2]
+    positions, lengths = _window(start, tokens.shape[1], tables.shape[1] * T)
+    logits = _decode_layers(
+        cfg, params, (pool["k"], pool["v"]), tokens,
+        _paged_window_body(cfg, tables, positions, lengths, kv_dtype),
+        last=last)
+    return logits, pool
+
+
+def verify_step(cfg: ArchConfig, params, cache, tokens, start):
+    """Speculative-verify step against the dense cache: tokens (B, C) —
+    the pending token plus C-1 drafted tokens per slot, written at cache
+    positions ``start`` .. ``start + C - 1``.  Returns (logits (B, C,
+    vocab_padded) at EVERY row, cache): row j is the target's
+    distribution after token j.  Rejected rows' K/V writes land beyond
+    the slot's frontier and are rewritten before first unmasked read, so
+    rollback is free."""
+    positions, _ = _window(start, tokens.shape[1], cache["k"].shape[2])
+    logits = _decode_layers(
+        cfg, params, (cache["k"], cache["v"]), tokens,
+        _dense_body(cfg, attn.chunk_prefill_attention, positions),
+        all_rows=True)
+    return logits, cache
+
+
+def paged_verify_step(cfg: ArchConfig, params, pool, tables, tokens, start,
+                      kv_dtype: str = "bf16"):
+    """Speculative-verify step straight off the paged block pool: the
+    window's K/V is scattered into pool blocks through the slot's table
+    (writes past the reservation land in the NULL block) and the
+    multi-query paged kernel (B2) attends the whole prefix.  Same
+    all-rows contract as :func:`verify_step`; rejected drafts roll back
+    by slot-length truncation — the tables never change, so blocks never
+    leak.  Returns (logits, pool)."""
+    T = pool["k"].shape[2]
+    positions, lengths = _window(start, tokens.shape[1], tables.shape[1] * T)
+    logits = _decode_layers(
+        cfg, params, (pool["k"], pool["v"]), tokens,
+        _paged_window_body(cfg, tables, positions, lengths, kv_dtype),
+        all_rows=True)
     return logits, pool

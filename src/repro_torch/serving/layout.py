@@ -15,7 +15,12 @@ again:
     no dense view at all.  ``attn_impl`` records what was built.
 
 The layout owns cache-manager construction, scheduler wiring (the block
-pool's admission gates) and the fused decode+sample step.  The port runs
+pool's admission gates) and the three steps the engine dispatches: the
+fused decode+sample step, the single-slot prefill-chunk step and the
+batched speculative-verify step.  On the paged layout the kernel variant
+of the last two runs the model's paged steps (the CUDA multi-query
+kernel B2 on the raw pool) and the gather variant the dense steps on a
+gathered view, scattered back whole (``scatter_view``).  The port runs
 eagerly on one device, so a "step" is a plain function; placement is
 the engine's single-device record.
 """
@@ -35,6 +40,41 @@ def make_fused(model, sample):
         return sample(logits, seeds), new_cache
 
     return _fused
+
+
+def shared_steps(model, sampler_cfg) -> dict:
+    """The contiguous layout's steps for ``model`` (the drafter's too):
+
+    * ``fused`` — batched decode + sample (:func:`make_fused`);
+    * ``prefill`` — one slot's prefill CHUNK: ``(params, cache, islot,
+      tokens (1, C), start (1,), last (1,), seeds) -> (token, cache)``,
+      run on slot ``islot``'s rows of the cache in place and sampled at
+      row ``last`` (the chunk's final real token; only the final chunk's
+      sample is used).  Chunks are padded to a fixed C: pad rows write at
+      future or clipped positions that are rewritten before first read
+      or masked, and their logits are never selected;
+    * ``verify`` — speculative verify: ``(params, cache, tokens (B, C),
+      start (B,)) -> (greedy tokens (B, C), cache)``, one batched forward
+      over every slot's pending token + drafts, the greedy token at every
+      row.  Built only for greedy samplers (the engine gates speculation
+      on determinism), where ``sample`` reduces over the last axis row by
+      row."""
+    sample = make_sampler(sampler_cfg)
+    batch_axis = {name: ax.index("batch")
+                  for name, ax in model.cache_axes().items()}
+
+    def _prefill(params, cache, islot, tokens, start, last, seeds):
+        row = {name: leaf.narrow(batch_axis[name], islot, 1)
+               for name, leaf in cache.items()}       # views: in place
+        logits, _ = model.prefill_step(params, row, tokens, start, last)
+        return sample(logits, seeds)[0], cache
+
+    def _verify(params, cache, tokens, start):
+        logits, cache = model.verify_step(params, cache, tokens, start)
+        return sample(logits, None), cache
+
+    return {"fused": make_fused(model, sample), "prefill": _prefill,
+            "verify": _verify}
 
 
 def make_paged_fused(model, sample, manager):
@@ -80,7 +120,17 @@ class KVLayout:
                          ``(params, cache, *extras, tokens, positions,
                          seeds) -> (tokens, cache)``; ``extras`` come from
                          the manager's ``step_extras()``.
-    ``attn_impl``      — the attention implementation the built step uses
+    ``make_prefill_step`` — the single-slot prefill-chunk step
+                         ``(params, cache, *extras, islot, tokens (1, C),
+                         start (1,), last (1,), seeds) -> (token, cache)``,
+                         or None when the model has no prefill step (the
+                         engine then feeds prompts one token per tick).
+    ``make_verify_step`` — the speculative-verify step ``(params, cache,
+                         *extras, tokens (B, C), start (B,)) -> (greedy
+                         tokens (B, C), cache)``, or None when the model
+                         has no verify step (the engine then decodes
+                         plainly).
+    ``attn_impl``      — the attention implementation the built steps use
                          ("gather"/"kernel"; None on the contiguous layout).
     """
 
@@ -108,13 +158,23 @@ class ContiguousLayout(KVLayout):
     def make_step(self, model, sampler_cfg, manager):
         return make_fused(model, make_sampler(sampler_cfg))
 
+    def make_prefill_step(self, model, sampler_cfg, manager):
+        if model.prefill_step is None:
+            return None
+        return shared_steps(model, sampler_cfg)["prefill"]
+
+    def make_verify_step(self, model, sampler_cfg, manager):
+        if model.verify_step is None:
+            return None
+        return shared_steps(model, sampler_cfg)["verify"]
+
 
 class PagedLayout(KVLayout):
     """Pooled KV-block scratchpad with per-request block tables (O6).
 
-    ``paged_attn`` selects the step's attention implementation and is
-    recorded as ``attn_impl`` (every model family of the port has a
-    paged decode step, so nothing degrades).  ``kv_dtype`` is the pool's
+    ``paged_attn`` selects the steps' attention implementation and is
+    recorded as ``attn_impl`` (every model family of the port has paged
+    decode, prefill and verify steps, so nothing degrades).  ``kv_dtype`` is the pool's
     stored dtype; the manager raises for anything but "bf16".
     """
 
@@ -150,6 +210,65 @@ class PagedLayout(KVLayout):
         if self.attn_impl == "kernel":
             return make_paged_kernel_fused(model, sample, manager)
         return make_paged_fused(model, sample, manager)
+
+    def make_prefill_step(self, model, sampler_cfg, manager):
+        """The paged prefill chunk of slot ``islot``: ``kernel`` runs the
+        model's ``paged_prefill_step`` on the slot's table row (chunk K/V
+        scattered straight into its blocks, kernel B2 over the prefix);
+        ``gather`` gathers the slot's dense view, runs the same dense
+        ``prefill_step`` the contiguous rungs run and scatters every
+        block of the view back."""
+        if model.prefill_step is None:
+            return None
+        sample = make_sampler(sampler_cfg)
+        plan, kv_dtype = manager.plan, manager.kv_dtype
+
+        if self.attn_impl == "kernel":
+            def _prefill(params, pool, tables, islot, tokens, start, last,
+                         seeds):
+                logits, pool = model.paged_prefill_step(
+                    params, pool, tables[islot:islot + 1], tokens, start,
+                    last, kv_dtype=kv_dtype)
+                return sample(logits, seeds)[0], pool
+            return _prefill
+
+        dense_prefill = shared_steps(model, sampler_cfg)["prefill"]
+
+        def _prefill(params, pool, tables, islot, tokens, start, last,
+                     seeds):
+            row = tables[islot:islot + 1]
+            token, dense = dense_prefill(params, plan.gather(pool, row), 0,
+                                         tokens, start, last, seeds)
+            return token, plan.scatter_view(pool, row, dense)
+        return _prefill
+
+    def make_verify_step(self, model, sampler_cfg, manager):
+        """The paged speculative verify: ``kernel`` runs the model's
+        ``paged_verify_step`` (window K/V scattered into pool blocks,
+        kernel B2 over each prefix); ``gather`` materializes every slot's
+        dense view, runs the same dense ``verify_step`` the contiguous
+        rung runs and scatters the WHOLE view back.  Writes past a slot's
+        reservation land in NULL table entries, so rejection rolls back
+        by slot-length truncation alone and blocks never leak."""
+        if model.verify_step is None:
+            return None
+        sample = make_sampler(sampler_cfg)
+        plan, kv_dtype = manager.plan, manager.kv_dtype
+
+        if self.attn_impl == "kernel":
+            def _verify(params, pool, tables, tokens, start):
+                logits, pool = model.paged_verify_step(
+                    params, pool, tables, tokens, start, kv_dtype=kv_dtype)
+                return sample(logits, None), pool
+            return _verify
+
+        dense_verify = shared_steps(model, sampler_cfg)["verify"]
+
+        def _verify(params, pool, tables, tokens, start):
+            greedy, dense = dense_verify(params, plan.gather(pool, tables),
+                                         tokens, start)
+            return greedy, plan.scatter_view(pool, tables, dense)
+        return _verify
 
 
 def select_layout(config) -> KVLayout:

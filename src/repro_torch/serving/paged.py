@@ -17,8 +17,9 @@ Layering (the allocators are pure host code, testable without a device):
     admission; drives the scheduler's admission gate (a request that fits
     ``max_seq`` but not the free blocks QUEUES, never raises).
   * :class:`BlockPagingPlan` — the tensor layer: pool leaves
-    (L, R, T, KV, dh), the per-tick gather (pool -> dense per-slot view)
-    and single-block scatter of the gather step, geometry and bytes.
+    (L, R, T, KV, dh), the per-tick gather (pool -> dense per-slot view),
+    the single-block scatter of the gather decode step and the whole-view
+    scatter of the gather prefill / verify steps, geometry and bytes.
   * :class:`PagedCacheManager` — the pool + tables behind the contiguous
     manager's engine-facing surface.
 
@@ -28,8 +29,9 @@ are reserved up front), position ``p`` is written before attention reads
 it, and every position ``> p`` is masked before the softmax.
 
 The recurrent-state row pool (``StatePool``/``StatePagingPlan``), narrow
-int8/fp8 pools, chunked ``grow_slot`` and defrag ``compact`` are not
-ported (ROADMAP A8, A9, A11).
+int8/fp8 pools, ``grow_slot`` (the reference's admission helper; here
+``admit_slot`` allocates the reservation directly) and defrag ``compact``
+are not ported (ROADMAP A9, A11).
 """
 
 from __future__ import annotations
@@ -250,6 +252,23 @@ class BlockPagingPlan:
             d = dense[name]
             blocks = d.reshape(d.shape[0], B, self.nb, self.T, *d.shape[3:])
             leaf[:, pb] = blocks[:, b_idx, jb]
+        return pool
+
+    def scatter_view(self, pool, tables, dense) -> dict:
+        """Write back, in place, EVERY block of the slots' dense views
+        (L, Bv, nb*T, ...) — the counterpart of :meth:`scatter` for the
+        gather prefill and verify steps, whose windows span several
+        blocks.  Untouched blocks rewrite the values just gathered from
+        them; NULL table entries (a padded tail, a window past the
+        reservation) write into the NULL row, which is garbage by
+        design, so repeated writes there are harmless.  bf16 pools only
+        (narrow pools: ROADMAP A9)."""
+        Bv = tables.shape[0]
+        flat = tables.reshape(-1).long()
+        for name, leaf in pool.items():
+            d = dense[name]
+            leaf[:, flat] = d.reshape(d.shape[0], Bv * self.nb, self.T,
+                                      *d.shape[3:])
         return pool
 
 

@@ -1,5 +1,5 @@
-"""Tests that need an NVIDIA GPU: the port's CUDA kernels against their
-plain PyTorch versions on the card.  They carry the ``cuda`` marker and
+"""Tests that need an NVIDIA GPU: the port's CUDA kernels (B1 decode, B2
+multi-query) against their plain PyTorch versions on the card.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -15,10 +15,11 @@ import torch
 from repro_torch.kernels.paged_attention import ops, ref
 
 
-def _case(B, H, KV, D, T, nb, *, dtype, seed=5, device="cuda"):
-    """A shuffled pool with NaN in the NULL block and unreferenced rows."""
+def _case(B, H, KV, D, T, nb, *, dtype, seed=5, device="cuda", Q=None):
+    """A shuffled pool with NaN in the NULL block and unreferenced rows;
+    ``Q`` gives q a query axis (B, Q, H, D), with lengths >= Q."""
     r = np.random.default_rng(seed)
-    lengths = r.integers(1, nb * T + 1, B).astype(np.int32)
+    lengths = r.integers(Q or 1, nb * T + 1, B).astype(np.int32)
     lengths[0] = nb * T
     R = 1 + B * nb + 3
     kp = r.normal(size=(R, T, KV, D)).astype(np.float32)
@@ -34,7 +35,8 @@ def _case(B, H, KV, D, T, nb, *, dtype, seed=5, device="cuda"):
     for row in set(range(R)) - used:
         kp[row] = np.nan
         vp[row] = np.nan
-    q = r.normal(size=(B, H, D)).astype(np.float32)
+    q = r.normal(size=(B, H, D) if Q is None else (B, Q, H, D)).astype(
+        np.float32)
     to = lambda a, dt=dtype: torch.tensor(a).to(device=device, dtype=dt)
     return (to(q), to(kp), to(vp), to(tables, torch.int32),
             to(lengths, torch.int32))
@@ -63,3 +65,42 @@ def test_paged_attention_kernel_matches_plain(dims, dtype):
                                    rtol=1.6e-2, atol=1e-3)
     else:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,Q,dtype", [
+    ((8, 32, 8, 128, 16, 128), 5, torch.bfloat16),   # qwen3-8b verify
+    ((1, 32, 8, 128, 16, 64), 64, torch.bfloat16),   # qwen3-8b chunk
+    ((3, 4, 2, 16, 4, 6), 3, torch.bfloat16),        # smoke width
+    ((4, 8, 8, 64, 8, 5), 7, torch.float32),         # G = 1, f32 pool
+])
+def test_paged_prefill_kernel_matches_plain_and_b1(dims, Q, dtype):
+    """B2 against its plain version (bf16: two bf16 ulps of the row's
+    largest output plus 1e-3 — a short row's near-1 probabilities move
+    its every output when one rounds the other way; f32: rtol 1e-4 /
+    atol 1e-5), and every row bitwise equal to B1 at that row's limit
+    (Q=1 included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    case = _case(*dims, dtype=dtype, Q=Q)
+    before = ops.paged_prefill_attention.launches
+    got = ops.paged_prefill_attention(*case)
+    torch.cuda.synchronize()
+    assert ops.paged_prefill_attention.launches == before + 1
+    want = ref.paged_prefill_attention_ref(*case)
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()
+    row = want.float().abs().amax(dim=-1, keepdim=True)
+    if dtype == torch.bfloat16:
+        assert (err <= 1e-3 + 1.6e-2 * row).all(), float(err.max())
+    else:
+        assert (err <= 1e-5 + 1e-4 * row).all(), float(err.max())
+    q, kp, vp, tables, lengths = case
+    for qi in range(Q):
+        one = ops.paged_attention(q[:, qi].contiguous(), kp, vp, tables,
+                                  lengths - (Q - 1 - qi))
+        assert torch.equal(one, got[:, qi]), qi
+    q1 = ops.paged_prefill_attention(q[:, :1].contiguous(), kp, vp, tables,
+                                     lengths)
+    assert torch.equal(q1[:, 0], ops.paged_attention(
+        q[:, 0].contiguous(), kp, vp, tables, lengths))

@@ -189,3 +189,165 @@ def test_get_model_rejects_unported_families():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="not ported"):
         get_config("rwkv6-3b")
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill and speculative verify steps
+# ---------------------------------------------------------------------------
+
+# (start (B,), last (B,)) per call: a first chunk, a second, and a padded
+# final chunk whose tail clips at position S-1 (its ``last`` rows stay
+# below the clip, as the engine's do).
+_PREFILL_CALLS = [([0, 0, 0], [3, 1, 2]), ([4, 4, 4], [3, 3, 0]),
+                  ([13, 9, 12], [1, 3, 2])]
+# start (B,) per verify window of 4 rows (slot 1 ends on position S-1).
+_VERIFY_CALLS = [[0, 0, 0], [4, 2, 6], [11, 12, 10]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("step", ["prefill", "paged_prefill", "verify",
+                                  "paged_verify"])
+def test_window_steps_logits_match_jax(step, dtype):
+    """``prefill_step`` / ``verify_step`` on a dense cache and their
+    paged twins on a shuffled block pool (T=4, the JAX kernel in
+    interpret mode; the pool in the compute dtype) against JAX, call by
+    call over the same cache: the
+    ``last`` rows' logits (prefill) or every row's (verify) within 1e-5
+    of the logits' scale in float32, 3e-2 in bf16."""
+    jm, jp, tm, tp = _pair(dtype)
+    cfg = tm.cfg
+    B, S, T, C = 3, 16, 4, 4
+    paged = step.startswith("paged")
+    rng = np.random.default_rng(1)
+    if paged:
+        nb = S // T
+        R = 1 + B * nb
+        tables = rng.permutation(np.arange(1, R)).astype(np.int32).reshape(
+            B, nb)
+        shape = (cfg.n_layers, R, T, cfg.n_kv_heads, cfg.head_dim)
+        # The pool in the compute dtype: in float32 the point is the
+        # algorithm, not the bf16 rounding of what is stored.
+        jc = {k: jnp.zeros(shape, jnp.dtype(dtype)) for k in "kv"}
+        tc = {k: torch.zeros(shape, dtype=DTYPES[dtype]) for k in "kv"}
+        extra_j, extra_t = (jnp.asarray(tables),), (torch.tensor(tables),)
+    else:
+        jc, tc = jm.init_cache(B, S), tm.init_cache(B, S)
+        extra_j = extra_t = ()
+    jfn = jax.jit(getattr(jm, f"{step}_step"))
+    tfn = getattr(tm, f"{step}_step")
+    calls = (_PREFILL_CALLS if step.endswith("prefill")
+             else [(s, None) for s in _VERIFY_CALLS])
+    for start, last in calls:
+        toks = rng.integers(1, 256, (B, C)).astype(np.int32)
+        jargs = [jnp.asarray(toks), jnp.asarray(start, jnp.int32)]
+        targs = [torch.tensor(toks), torch.tensor(start)]
+        if last is not None:
+            jargs.append(jnp.asarray(last, jnp.int32))
+            targs.append(torch.tensor(last))
+        jl, jc = jfn(jp, jc, *extra_j, *jargs)
+        tl, tc = tfn(tp, tc, *extra_t, *targs)
+        assert tl.dtype == torch.float32 and tl.shape == jl.shape
+        assert _rel(jl, tl) <= TOL[dtype], (start, _rel(jl, tl))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_padded_chunk_never_overwrites_a_real_row(paged):
+    """A padded final chunk whose real last token sits at the clip
+    position: every write there carries that real row's K/V (CUDA leaves
+    undefined which of several writes to one index lands), so the cache
+    and the row's logits are those of the same chunk without its pad."""
+    _, _, tm, tp = _pair("float32")
+    cfg = tm.cfg
+    S, T = 16, 4
+    toks = torch.tensor([[7, 9, 11, 0, 0]])
+    if paged:
+        tables = torch.arange(1, S // T + 1, dtype=torch.int32)[None]
+        shape = (cfg.n_layers, S // T + 1, T, cfg.n_kv_heads, cfg.head_dim)
+
+        def run(t):
+            pool = {k: torch.zeros(shape, dtype=torch.bfloat16) for k in "kv"}
+            lg, pool = tm.paged_prefill_step(tp, pool, tables, t,
+                                             torch.tensor([13]),
+                                             torch.tensor([2]))
+            return lg, pool["k"][:, 4, 1:]               # positions 13..15
+    else:
+        def run(t):
+            cache = tm.init_cache(1, S)
+            lg, cache = tm.prefill_step(tp, cache, t, torch.tensor([13]),
+                                        torch.tensor([2]))
+            return lg, cache["k"][:, 0, 13:]
+    lg_pad, k_pad = run(toks)
+    lg_real, k_real = run(toks[:, :3])
+    torch.testing.assert_close(k_pad, k_real, rtol=0, atol=1e-2)
+    torch.testing.assert_close(lg_pad, lg_real, rtol=1e-5, atol=1e-5)
+    lg_other, k_other = run(torch.tensor([[7, 9, 0, 0, 0]]))
+    assert not torch.allclose(k_other[:, 2], k_real[:, 2], atol=1e-2), \
+        "the pad token's K/V must differ for this test to mean anything"
+
+
+def test_smollm_configs_match_the_reference():
+    """The port's smollm-360m FULL and smoke configs carry the
+    reference's widths (the smoke drafter: head_dim 20, no qk-norm)."""
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config
+
+    fields = ("name", "family", "n_layers", "d_model", "n_heads",
+              "n_kv_heads", "d_ff", "vocab", "head_dim", "qk_norm",
+              "mlp_kind", "rope_theta")
+    for port_cfg, ref_cfg in ((get_config("smollm-360m"),
+                               jax_config("smollm-360m")),
+                              (get_smoke("smollm-360m"),
+                               jax_smoke("smollm-360m"))):
+        assert ({f: getattr(port_cfg, f) for f in fields}
+                == {f: getattr(ref_cfg, f) for f in fields})
+    small = get_smoke("smollm-360m")
+    assert (small.head_dim, small.qk_norm) == (20, False)
+
+
+def test_compatible_drafter_resolves_at_the_target_scale():
+    """A drafter named by string resolves at the target's scale: the
+    smoke pair shares the 256-token vocab; at full scale qwen3-8b
+    (151,936) and smollm-360m (49,152) do not, which raises naming both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import (DRAFTER_PAIRS,
+                                              compatible_drafter)
+
+    assert DRAFTER_PAIRS["qwen3-8b"] == "smollm-360m"
+    d = compatible_drafter(get_smoke("qwen3-8b"))
+    assert d == get_smoke("smollm-360m")
+    with pytest.raises(ValueError, match=r"vocab 49152\).*vocab 151936"):
+        compatible_drafter("qwen3-8b", "smollm-360m")
+    with pytest.raises(ValueError, match="not token-compatible"):
+        compatible_drafter(get_config("qwen3-8b"))
+    with pytest.raises(ValueError, match="no known drafter"):
+        compatible_drafter(get_smoke("smollm-360m"))
+    assert compatible_drafter(get_config("qwen3-8b"),
+                              get_config("qwen3-8b")).vocab == 151_936
+
+
+def test_smoke_drafter_runs_the_dense_path_like_jax():
+    """The smollm smoke drafter (head_dim 20 — 40-byte bf16 rows the
+    paged kernel refuses — and no qk-norm) decodes and prefills on the
+    dense path within 1e-5 of JAX in float32."""
+    jcfg = dataclasses.replace(jax_smoke("smollm-360m"),
+                               compute_dtype="float32")
+    jm = jax_get_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(1))
+    tm = get_model(dataclasses.replace(get_smoke("smollm-360m"),
+                                       compute_dtype="float32"), device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    B, S = 2, 16
+    jc, tc = jm.init_cache(B, S), tm.init_cache(B, S)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(1, 256, (B, 6)).astype(np.int32)
+    jl, jc = jax.jit(jm.prefill_step)(jp, jc, jnp.asarray(toks),
+                                      jnp.asarray([0, 0], jnp.int32),
+                                      jnp.asarray([5, 3], jnp.int32))
+    tl, tc = tm.prefill_step(tp, tc, torch.tensor(toks), torch.tensor([0, 0]),
+                             torch.tensor([5, 3]))
+    assert _rel(jl, tl) <= 1e-5
+    nxt = rng.integers(1, 256, (B, 1)).astype(np.int32)
+    jl, _ = jax.jit(jm.decode_step)(jp, jc, jnp.asarray(nxt),
+                                    jnp.asarray([6, 6], jnp.int32))
+    tl, _ = tm.decode_step(tp, tc, torch.tensor(nxt), torch.tensor([6, 6]))
+    assert _rel(jl, tl) <= 1e-5
