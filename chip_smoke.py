@@ -27,6 +27,17 @@ Phases (any failure raises, and the script exits non-zero):
               one PyTorch library call (``scaled_dot_product_attention``
               on a pre-gathered dense view — a yardstick the port never
               calls), the wrapper's host time per call, and the bound;
+     3c.    — B3, the flash-attention kernel, against its plain version
+              (TF32 off) at smollm-360m's training shape (B=8, S=4096,
+              H=15, Hkv=5, D=64, causal), qwen3-8b's heads (H=32, Hkv=8,
+              D=128, S=2048), a rectangular causal offset (S=64,
+              S_kv=1024), a non-causal case and a ragged S=1000, each in
+              bf16 and f32; its autograd Function's gradients against
+              autograd through the plain version at the smollm layer
+              shape; device times of the kernel, the plain version and
+              ``scaled_dot_product_attention(is_causal=True,
+              enable_gqa=True)`` (the yardstick), the wrapper's host
+              time, and the bound;
   4. ladder — smoke-width qwen3-8b on the card at O2, O4, O5, O6-gather,
               O6-kernel, with chunked prefill (chunks 3 and 8) on O5,
               O6-gather and O6-kernel, and at O7 with the smollm-360m
@@ -54,7 +65,17 @@ Phases (any failure raises, and the script exits non-zero):
               window, B2 launches = layers x verify dispatches, the share
               of tokens equal to (d)'s, and a teacher-forced comparison of
               verify rows with decode rows that says where their bits
-              part.
+              part;
+  6. train  — smollm-360m at its published widths (32 layers, d_model
+              960, 15 heads, 5 kv heads, head_dim 64, d_ff 2560, vocab
+              49,152), f32 masters, bf16 compute, remat full, trained 5
+              steps through ``repro_torch.launch.train.train`` on the
+              synthetic stream from seed 0 at seq 4096, global batch 8
+              (train_4k's 256 cut to 8) from random weights: per-step
+              loss, grad_norm, lr and wall time, tokens/s, peak memory,
+              and B3's launches (32 forward + 32 remat recompute a step,
+              asserted); step 0's loss and grad_norm computed once with
+              B3 and once with the plain attention in its place.
 
 Prints the card line and a JSON object of kernel numbers on lines before
 the last, writes the detailed numbers to ``chiprun_out/chip_smoke.json``,
@@ -66,6 +87,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -93,6 +115,24 @@ B2_REPLACES = "src/repro/kernels/paged_attention/kernel.py:254"
 # the order the softmax denominator is summed in, moves every output of
 # the row at the row's scale, also where the output cancels to near 0.
 TOL = {"bf16": (1e-3, 1.6e-2), "f32": (1e-5, 1e-4)}
+B3_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+B3_REPLACES = "src/repro/kernels/flash_attention/kernel.py:89"
+# |kernel - plain| <= RTOL * (the row's largest |plain|): two bf16 ulps
+# for bf16 (both round once from f32, so only a near-tie rounds apart);
+# summation order for f32.
+B3_TOL = {"bf16": 1.6e-2, "f32": 1e-5}
+# Phase 6: step 0 with B3 against the plain attention (relative).  Both
+# compute in f32 and round once to bf16, so only near-ties round apart.
+# The loss is held to 1e-3 at 32 layers and at 2.  The gradient is held
+# tight at 2 layers only: with the reference's initialiser (fan-in taken
+# as shape[-2], so wq/wk/wv draw with std 1/sqrt(H) instead of
+# 1/sqrt(d)) the step-0 gradient grows exponentially with depth and is
+# chaotic — on the CPU in f32, at full width, JAX and the port on the
+# same weights give grad_norms 404 / 404 at 2 layers, 21,924 / 23,175 at
+# 4 and 1.2e7 / 2.0e6 at 8 (tools/grad_by_depth.py) — so at 32 layers
+# grad_norm is held only to be finite and within a factor of 10.
+TRAIN_TOL = {32: {"loss": 1e-3, "grad_norm_factor": 10.0},
+             2: {"loss": 1e-3, "grad_norm": 1e-2}}
 
 
 def log(msg: str) -> None:
@@ -464,6 +504,156 @@ def phase_prefill_kernel(b1_main) -> dict:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
             f"{t['flops']} FLOP); the wrapper's host time per call "
             f"{t['wrapper_host_ms']:.4f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: B3 against its plain version
+# ---------------------------------------------------------------------------
+
+def flash_case(B, S, S_kv, H, Hkv, D, *, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(
+        dtype)
+    return mk(B, S, H, D), mk(B, S_kv, Hkv, D), mk(B, S_kv, Hkv, D)
+
+
+def check_flash(name, case, causal, kind) -> float:
+    """B3 vs its plain version on one case; max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    got = ops.flash_attention(*case, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(*case, causal=causal).float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"B3 {name}: non-finite output")
+    err = (got.float() - want).abs()
+    row = want.abs().amax(dim=-1, keepdim=True)
+    bad = err > B3_TOL[kind] * row
+    if bad.any():
+        raise AssertionError(
+            f"B3 {name}: {int(bad.sum())} elements beyond {B3_TOL[kind]} "
+            f"of their row's largest |plain| (max err {float(err.max())})")
+    log(f"[kernel] B3 {name} {kind}: max |kernel - plain| = "
+        f"{float(err.max()):.3e}, at most {float((err / row).max()):.3e} of "
+        f"the row's largest |plain| (tolerance {B3_TOL[kind]})")
+    return float(err.max())
+
+
+def attended_pairs(S, S_kv, causal) -> int:
+    """(query row, key) pairs one head attends: rows r < S see keys
+    <= r + S_kv - S under a causal mask."""
+    if not causal:
+        return S * S_kv
+    off = S_kv - S
+    return sum(min(S_kv, r + off + 1) for r in range(S))
+
+
+def phase_flash_kernel() -> dict:
+    """Phase 3c: B3 against its plain version at the training shapes and
+    edges, in bf16 and f32; the autograd Function's gradients against
+    autograd through the plain version; times at smollm-360m's training
+    shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    log(f"[kernel] B3 checks with torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    main_dims = (8, 4096, 4096, 15, 5, 64)
+    cases = [
+        ("smollm-360m training shape B=8 S=4096 H=15 Hkv=5 D=64 causal",
+         main_dims, True),
+        ("qwen3-8b heads B=2 S=2048 H=32 Hkv=8 D=128 causal",
+         (2, 2048, 2048, 32, 8, 128), True),
+        ("rectangular offset B=4 S=64 S_kv=1024 H=15 Hkv=5 D=64 causal",
+         (4, 64, 1024, 15, 5, 64), True),
+        ("non-causal B=2 S=1024 H=15 Hkv=5 D=64",
+         (2, 1024, 1024, 15, 5, 64), False),
+        ("ragged B=2 S=1000 H=32 Hkv=8 D=128 causal",
+         (2, 1000, 1000, 32, 8, 128), True),
+    ]
+    errs = {}
+    for i, (name, dims, causal) in enumerate(cases):
+        for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            case = flash_case(*dims, dtype=dt, seed=30 + i)
+            errs[f"{name} {kind}"] = check_flash(name, case, causal, kind)
+            del case
+    torch.cuda.empty_cache()
+
+    # The Function's chunked-recompute gradients (q_chunk 1024, as the
+    # full-width config runs) against autograd through the plain version
+    # in one piece, f32, at the smollm layer shape.
+    q, k, v = (t.requires_grad_() for t in flash_case(
+        *main_dims, dtype=torch.float32, seed=40))
+    w = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(41))
+    grads = {}
+    for name, fn in (("function", lambda: ops.flash_attention(
+            q, k, v, causal=True, q_chunk=1024)),
+                     ("plain", lambda: ref.flash_attention_ref(
+                         q, k, v, causal=True))):
+        (fn() * w).sum().backward()
+        grads[name] = [t.grad.detach().clone() for t in (q, k, v)]
+        for t in (q, k, v):
+            t.grad = None
+    grad_err = []
+    for got, want, what in zip(grads["function"], grads["plain"], "qkv"):
+        e = float((got - want).abs().max() / want.abs().max())
+        grad_err.append(e)
+        if not e <= 1e-5:
+            raise AssertionError(f"B3 Function d{what} off autograd through "
+                                 f"the plain version by {e:.3e} of its scale")
+    log(f"[kernel] B3 Function gradients (chunks of 1024 query rows) vs "
+        f"autograd through the plain version, f32, smollm layer shape: "
+        f"dq {grad_err[0]:.3e}, dk {grad_err[1]:.3e}, dv {grad_err[2]:.3e} "
+        f"of each gradient's scale (tolerance 1e-5)")
+    del q, k, v, w, grads
+    torch.cuda.empty_cache()
+
+    B, S, S_kv, H, Hkv, D = main_dims
+    q, k, v = flash_case(*main_dims, dtype=torch.bfloat16, seed=30)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    res = {
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        "wrapper_host_ms": host_ms(
+            lambda: ops.flash_attention(q, k, v, causal=True), reps=20),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                            causal=True),
+                            reps=10),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)),
+    }
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    flops = 4 * B * H * D * attended_pairs(S, S_kv, True)   # QK and PV
+    bound_ms, bound_by = bound(nbytes, flops)
+    main_key = f"{cases[0][0]} bf16"
+    out = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": B3_SOURCE,
+        "replaces": B3_REPLACES,
+        "launches": None,
+        "max_abs_err": errs[main_key],
+        **res,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "shape": cases[0][0] + " bf16",
+        "bytes": nbytes,
+        "flops": flops,
+        "errors": errs,
+        "grad_rel_err": grad_err,
+    }
+    log(f"[kernel] B3 ({out['shape']}): kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, library (sdpa, is_causal, enable_gqa) "
+        f"{res['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes} B, {flops} FLOP); the wrapper's host time per call "
+        f"{res['wrapper_host_ms']:.4f} ms")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
     return out
 
 
@@ -920,14 +1110,14 @@ def phase_full(card: str) -> dict:
     reqs = demo_requests(cfg, n_req, **kw)
     pool_blocks = sum(blocks_for(len(p) + n, T) for p, n in reqs)
     torch.cuda.reset_peak_memory_stats()
-    ops.paged_attention.launches = 0
-    ops.paged_prefill_attention.launches = 0
+    reset_launches()
     out = serve_demo(cfg, batch_size=B, max_seq=max_seq, n_requests=n_req,
                      level=OptLevel.O6, paged_attn="kernel",
                      kv_block_size=T, kv_pool_blocks=pool_blocks,
                      params=params, **kw)
     launches = ops.paged_attention.launches
     b2_launches = ops.paged_prefill_attention.launches
+    no_b3("(b)")
     peak = torch.cuda.max_memory_allocated()
     if out["paged_attn"] != "kernel":
         raise AssertionError(f"full width: served through "
@@ -1029,10 +1219,10 @@ def run_chunked(model, params, cut_cfg, cut_params, reqs, *, prestaged_tokens,
                            kv_block_size=T, kv_pool_blocks=pool_blocks,
                            prefill_chunk=C))
     torch.cuda.reset_peak_memory_stats()
-    ops.paged_attention.launches = 0
-    ops.paged_prefill_attention.launches = 0
+    reset_launches()
     out = serve_counted(eng, reqs)
     b1, b2 = ops.paged_attention.launches, ops.paged_prefill_attention.launches
+    no_b3("(d)")
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     chunks = sum(-(-len(p) // C) for p, _ in reqs)
     if eng.prefill_mode != "chunked":
@@ -1106,10 +1296,10 @@ def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
     if eng.spec_mode != "draft":
         raise AssertionError(f"(e) speculation {eng.spec_mode}")
     torch.cuda.reset_peak_memory_stats()
-    ops.paged_attention.launches = 0
-    ops.paged_prefill_attention.launches = 0
+    reset_launches()
     out = serve_counted(eng, reqs)
     b1, b2 = ops.paged_attention.launches, ops.paged_prefill_attention.launches
+    no_b3("(e)")
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     if b2 % L or b1 % L or b1 // L + b2 // L != out["dispatches"]:
         raise AssertionError(f"(e) launches B2 {b2}, B1 {b1}: want {L} x "
@@ -1134,6 +1324,248 @@ def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
         f"{same}/{total}; launches B2 {b2} = {L} x {b2 // L} verify "
         f"dispatches, B1 {b1}; peak {out['peak_bytes'] / 2**30:.2f} GiB")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: train smollm-360m at full width
+# ---------------------------------------------------------------------------
+
+def reset_launches() -> None:
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    for fn in (pops.paged_attention, pops.paged_prefill_attention,
+               fops.flash_attention):
+        fn.launches = 0
+
+
+def no_b3(run: str) -> None:
+    """Serving never runs the training attention kernel."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    if fops.flash_attention.launches:
+        raise AssertionError(f"{run}: B3 launched "
+                             f"{fops.flash_attention.launches} times in a "
+                             f"serving run")
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    return {fn.__name__: fn.launches
+            for fn in (pops.paged_attention, pops.paged_prefill_attention,
+                       fops.flash_attention)}
+
+
+def profile_train_step(art, params, opt, batch) -> dict:
+    """Device time of one training step by kernel name, from
+    ``torch.profiler`` (CUDA activity only), after one unprofiled step.
+    The profiled step runs slower on the host than an unprofiled one, so
+    the idle share read here is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    float(art.step_fn(params, opt, batch)[2]["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(art.step_fn(params, opt, batch)[2]["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", 0)
+              or getattr(ev, "self_cuda_time_total", 0))
+        if us:
+            by_name[ev.key] = us / 1e3
+    busy = sum(by_name.values())
+    kinds = {}
+    for k, v in by_name.items():
+        kinds[_kernel_kind(k)] = kinds.get(_kernel_kind(k), 0.0) + v
+    return {"wall_ms": wall_ms, "device_ms": busy or None,
+            "idle_share": 1 - busy / wall_ms if busy else None,
+            "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:10]}
+
+
+def _kernel_kind(name: str) -> str:
+    """A coarse class of a device kernel's name, for the step breakdown."""
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "B3"
+    if any(t in low for t in ("gemm", "nvjet", "cutlass")):
+        return "GEMM f32" if "f32f32" in low or "sgemm" in low \
+            else "GEMM bf16"
+    if "softmax" in low:
+        return "softmax"
+    if "masked_fill" in low:
+        return "masked_fill"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low:
+        return "other elementwise"
+    return "other"
+
+
+def phase_train() -> dict:
+    """Phase 6: step 0's loss and grad_norm with B3 and with the plain
+    attention in its place, then 5 steps of ``train()``."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train
+    from repro_torch.optim import adamw
+
+    cfg = get_config("smollm-360m")
+    want = dict(n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
+                head_dim=64, d_ff=2560, vocab=49_152, param_dtype="float32",
+                compute_dtype="bfloat16", remat=True, q_chunk=1024)
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"smollm-360m config {got}, want {want}")
+    B, S, n_steps = 8, 4096, 5
+    shape = ShapeConfig("train_4k cut to batch 8", S, B, "train")
+    L = cfg.n_layers
+
+    # Step 0 twice on the same params and batch: B3, then the plain
+    # attention in B3's place (same Function, same chunked backward); at
+    # the full 32 layers and at 2.
+    batch = {k: v.cuda() for k, v in
+             SyntheticLM(cfg.vocab, S, B, seed=0).batch_at(0).items()}
+    plain = lambda q, k, v, causal: fref.flash_attention_ref(
+        q, k, v, causal=causal)
+    step0 = {}
+    for depth in (L, 2):
+        c = dataclasses.replace(cfg, n_layers=depth)
+        art = steps.build_train(c, shape)
+        params = art.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        got = {}
+        for name in ("kernel", "plain"):
+            reset_launches()
+            patch = (mock.patch.object(fops, "_forward", plain)
+                     if name == "plain" else contextlib.nullcontext())
+            with patch:
+                loss, grads = steps.value_and_grad(art.model.loss, params,
+                                                   batch)
+            got[name] = {"loss": float(loss),
+                         "grad_norm": float(adamw.global_norm(grads)),
+                         "b3_launches": fops.flash_attention.launches}
+            del grads
+            torch.cuda.empty_cache()
+        if got["kernel"]["b3_launches"] != 2 * depth or \
+                got["plain"]["b3_launches"] != 0:
+            raise AssertionError(f"step 0 at {depth} layers: B3 launches "
+                                 f"{got}")
+        tol = TRAIN_TOL[depth]
+        k_, p_ = got["kernel"], got["plain"]
+        rel = {x: abs(k_[x] - p_[x]) / abs(p_[x])
+               for x in ("loss", "grad_norm")}
+        got["rel"] = rel
+        step0[depth] = got
+        log(f"[train] step 0 at {depth} layers, kernel B3: loss "
+            f"{k_['loss']:.6f}, grad_norm {k_['grad_norm']:.6e}; plain "
+            f"attention: loss {p_['loss']:.6f}, grad_norm "
+            f"{p_['grad_norm']:.6e}; relative differences: loss "
+            f"{rel['loss']:.3e}, grad_norm {rel['grad_norm']:.3e} "
+            f"(tolerances {tol})")
+        ratio = k_["grad_norm"] / p_["grad_norm"]
+        if not (rel["loss"] <= tol["loss"]
+                and math.isfinite(k_["grad_norm"])
+                and rel["grad_norm"] <= tol.get("grad_norm", math.inf)
+                and 1 / tol.get("grad_norm_factor", math.inf) <= ratio
+                <= tol.get("grad_norm_factor", math.inf)):
+            raise AssertionError(f"step 0 at {depth} layers: B3 and plain "
+                                 f"differ beyond {tol}: {got}")
+        del params, art
+        torch.cuda.empty_cache()
+    del batch
+
+    # The main path: train() as a user calls it, its step function
+    # wrapped to read B3's launches step by step.
+    per_step = []
+    build = steps.build_train
+
+    def counting_build(*args, **kwargs):
+        art = build(*args, **kwargs)
+        step_fn = art.step_fn
+
+        def counted(*a):
+            before = fops.flash_attention.launches
+            res = step_fn(*a)
+            per_step.append(fops.flash_attention.launches - before)
+            return res
+
+        art.step_fn = counted
+        return art
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with mock.patch.object(steps, "build_train", counting_build):
+        out = train(cfg, shape, steps=n_steps, seed=0)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if per_step != [2 * L] * n_steps or \
+            launches["flash_attention"] != n_steps * 2 * L:
+        raise AssertionError(
+            f"B3 launches per step {per_step} (total "
+            f"{launches['flash_attention']}); want {2 * L} a step ({L} "
+            f"forward + {L} remat recompute)")
+    if launches["paged_attention"] or launches["paged_prefill_attention"]:
+        raise AssertionError(f"serving kernels ran in training: {launches}")
+    out_metrics = out["metrics"]
+    losses = [m["loss"] for m in out_metrics]
+    if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"losses {losses}")
+    step_ms = [t * 1e3 for t in out["step_s"]]
+    steady = step_ms[1:]
+    tok_s = B * S / (statistics.mean(steady) / 1e3)
+    for m, ms in zip(out_metrics, step_ms):
+        log(f"[train] step {m['step']}: loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.6e}, lr {m['lr']:.4e}, wall {ms:.1f} ms")
+    log(f"[train] smollm-360m full width, B={B} x S={S}, remat full: steps "
+        f"2-{n_steps} {statistics.mean(steady):.1f} ms a step (each "
+        f"{', '.join(f'{x:.1f}' for x in steady)}), {tok_s:.0f} tokens/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB; B3 launches "
+        f"{launches['flash_attention']}, per step {per_step} ({L} forward "
+        f"+ {L} recompute); step 0 loss equal to the "
+        f"B3 check's: {losses[0] == step0[L]['kernel']['loss']}")
+    del out
+    torch.cuda.empty_cache()
+
+    art = steps.build_train(cfg, shape)
+    params = art.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: v.cuda() for k, v in
+             SyntheticLM(cfg.vocab, S, B, seed=0).batch_at(0).items()}
+    prof = profile_train_step(art, params, art.init_opt(params), batch)
+    del params, batch, art
+    torch.cuda.empty_cache()
+    if prof["device_ms"]:
+        log(f"[train] profile of one step: wall {prof['wall_ms']:.1f} ms, "
+            f"device busy {prof['device_ms']:.1f} ms (idle share <= "
+            f"{prof['idle_share']:.3f}); by kind: " + "; ".join(
+                f"{k} {v:.1f}" for k, v in prof["by_kind_ms"].items())
+            + "; top: " + "; ".join(
+                f"{k[:60]} {v:.1f}" for k, v in prof["top"]))
+    else:
+        log("[train] profile of one step: the profiler saw no device time")
+    return {"config": want, "batch": B, "seq": S, "steps": n_steps,
+            "metrics": out_metrics,
+            "step_ms": step_ms, "steady_ms": statistics.mean(steady),
+            "tokens_per_s": tok_s, "peak_bytes": peak, "launches": launches,
+            "b3_launches_per_step": per_step,
+            "step0": step0, "profile": prof}
 
 
 def _leaves(tree):
@@ -1178,8 +1610,11 @@ def main() -> int:
     b1, b1_main = phase_kernel()
     b2 = phase_prefill_kernel(b1_main)
     del b1_main
+    b3 = phase_flash_kernel()
     ladder = phase_ladder()
     full = phase_full(card)
+    torch.cuda.empty_cache()
+    trained = phase_train()
     # Launches on the main path: B1 in run (b), B2 in run (d); each
     # run's counts beside them.
     runs = {"b": {"paged_attention": full["kernel_launches"],
@@ -1189,10 +1624,14 @@ def main() -> int:
         k["launches_by_run"] = {run: n[k["name"]] for run, n in runs.items()}
     b1["launches"] = runs["b"]["paged_attention"]
     b2["launches"] = runs["d"]["paged_prefill_attention"]
-    kerns = [b1, b2]
+    # B3 on its main path: phase 6's train() run.
+    b3["launches"] = trained["launches"]["flash_attention"]
+    b3["launches_by_run"] = {"train": b3["launches"]}
+    kerns = [b1, b2, b3]
 
     result = {"card": card, "kernels": kerns, "ladder": ladder,
-              "full": full, "seconds": time.perf_counter() - t_start}
+              "full": full, "train": trained,
+              "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

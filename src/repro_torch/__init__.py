@@ -13,7 +13,11 @@ decoding with a drafter), with prompts fed a token per tick or in chunks
 (``prefill_chunk``).  The paged attention kernels — one query per slot
 (decode) and a window of queries per slot (chunked prefill, verify) —
 are written in CUDA for sm_90a
-(``kernels/paged_attention/csrc/paged_attention.cu``).  Everything else
+(``kernels/paged_attention/csrc/paged_attention.cu``).  It trains the same
+family on one card (``launch.train``: f32 masters, bf16 compute, remat,
+AdamW, the synthetic stream, async checkpoints, the resilient loop),
+with the forward's causal attention in a CUDA flash-attention kernel
+(``kernels/flash_attention/csrc/flash_attention.cu``).  Everything else
 raises ``NotImplementedError`` naming its ROADMAP item.
 
 Entry points run on the CUDA device unless the caller passes

@@ -1,8 +1,9 @@
-"""Config registry of the port: only the archs it serves — qwen3-8b and
-its speculative drafter smollm-360m."""
+"""Config registry of the port: only the archs it runs — qwen3-8b and
+smollm-360m (its speculative drafter, and the training CLI's default)."""
 
 from repro_torch.configs import qwen3_8b, smollm_360m
-from repro_torch.configs.base import ArchConfig  # noqa: F401
+from repro_torch.configs.base import (ArchConfig, SHAPES,  # noqa: F401
+                                      ShapeConfig)
 
 _MODULES = {
     "qwen3-8b": qwen3_8b,

@@ -1,9 +1,10 @@
-"""Architecture config (port copy of the dense-family fields).
+"""Architecture and shape configs (port copy of the dense-family fields).
 
 The fields of ``repro/configs/base.py::ArchConfig`` that the dense
-serving path reads, with the same names and defaults.  Families and
-features outside this slice (MoE, recurrent, enc-dec, relu2 MLPs) are
-rejected by the model code, not silently ignored.
+serving and training paths read, with the same names and defaults, and
+``ShapeConfig``/``SHAPES``.  Families and features outside the port
+(MoE, recurrent, enc-dec, relu2 MLPs) are rejected by the model code,
+not silently ignored.
 """
 
 from __future__ import annotations
@@ -26,9 +27,40 @@ class ArchConfig:
     qk_norm: bool = False
     mlp_kind: str = "swiglu"
     rope_theta: float = 10_000.0
-    compute_dtype: str = "bfloat16"  # params are stored in it (the
-                                     # reference keeps f32, casts per use)
+    # Numerics / memory.  Serving stores params in ``compute_dtype`` (the
+    # reference keeps f32 and casts per use: the same bits, half the
+    # memory); training keeps ``param_dtype`` masters and casts them once
+    # per loss evaluation.
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = ""       # "" => legacy `remat` flag; full|dots|none
+    cast_params_once: bool = False  # the port's loss always casts once
+    scores_dtype: str = "float32"   # attention logits dtype
+    loss_chunk: int = 2048       # chunked cross-entropy (memory cap)
+    q_chunk: int = 1024          # query rows per attention backward chunk
+    microbatch: int = 0          # >1: grad-accumulation microbatches
 
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (LM shapes: seq_len x global_batch), as in the reference.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -14,4 +14,4 @@ FULL = ArchConfig(
 def smoke() -> ArchConfig:
     return dataclasses.replace(
         FULL, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-        d_ff=128, vocab=256)
+        d_ff=128, vocab=256, q_chunk=32, loss_chunk=32, remat=False)

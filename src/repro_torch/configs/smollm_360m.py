@@ -18,4 +18,4 @@ FULL = ArchConfig(
 def smoke() -> ArchConfig:
     return dataclasses.replace(
         FULL, n_layers=2, d_model=60, n_heads=3, n_kv_heads=1, head_dim=20,
-        d_ff=128, vocab=256)
+        d_ff=128, vocab=256, q_chunk=32, loss_chunk=32, remat=False)

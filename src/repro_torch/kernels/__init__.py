@@ -5,8 +5,10 @@ with its plain-PyTorch ``ref`` beside it.
 all at once (``_build.build_all(SOURCES)``) before first use.
 """
 
+from repro_torch.kernels.flash_attention.kernel import SOURCES as _FLASH
 from repro_torch.kernels.paged_attention.kernel import SOURCES as _PAGED
 
 SOURCES = {
     "paged_attention": _PAGED,
+    "flash_attention": _FLASH,
 }

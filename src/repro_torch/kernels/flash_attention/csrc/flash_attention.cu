@@ -1,0 +1,349 @@
+// Flash attention for Hopper (sm_90a): blocked causal or non-causal
+// softmax attention with an online softmax, GQA by index, and the causal
+// mask shifted by S_kv - S.
+//
+// Replaces the Pallas TPU kernel
+//   B3 src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
+//      (body _attn_kernel)
+// and computes what it computes, not block by block:
+//
+//   q   (B, S, H, D)       bf16 or f32
+//   k/v (B, S_kv, Hkv, D)  the same dtype, H % Hkv == 0, S_kv >= S
+//   out (B, S, H, D)       q's dtype
+//
+// Query head h of batch b reads kv head h / (H / Hkv): the TPU kernel's
+// kv_stream index map, with no K/V repeat.  Scores are
+// dot(q_f32, k_f32) * scale with an f32 scale (1 / sqrt(D), passed in);
+// with causal, query row r attends kv positions <= r + (S_kv - S), and
+// masked scores are -1e30, never -inf.  The running max m, sum l and
+// accumulator acc are f32; at the end out = acc / max(l, 1e-30), cast to
+// q's dtype.  expf (not __expf) keeps the kernel within reduction-order
+// noise of its plain version.
+//
+// One thread block per (query tile of kBQ rows, batch x query head).  A
+// loop inside the block over key tiles of kBK positions replaces the
+// TPU's sequential third grid dimension; under a causal mask it stops at
+// the block's last row's limit, where the TPU kernel skips the blocks
+// above the diagonal.  Blocks run heavy tiles first (blockIdx.x counts
+// query tiles from the end), so the causal triangle's long tiles are not
+// left for last.  The q tile is staged once in shared memory as f32; for
+// each key tile the block stages K (16-byte loads, all of a thread's
+// loads issued before any is used), computes its scores, runs the online
+// softmax in registers, writes P to shared memory, then stages V in K's
+// buffer and accumulates P @ V in registers.  Rows past S and K/V rows
+// past S_kv are zero-filled, and their scores masked, so ragged edges
+// need no padding of the inputs.
+//
+// Work split: 128 threads as 16 x 8; thread (ty, tx) owns query rows
+// 4 ty .. 4 ty + 3, score columns tx + 8 c (c < 8) and output columns
+// 4 tx + 32 g .. + 3 (g < D / 32).  Tile rows are padded to D + 4 floats
+// so the float4 reads of eight lanes with consecutive tx fall on
+// distinct banks.  A row's max and sum are reduced across the eight tx
+// lanes that share it with shuffles.  Launch bounds ask for three blocks
+// per SM at D = 64 (168 registers, no spills; four blocks cap a thread at
+// 128 registers, which spills and ran 4% slower) and two at D = 128.
+//
+// Bound: the operations.  At smollm-360m's training shape (B=8, S=4096,
+// H=15, Hkv=5, D=64, causal) the attention is 2 B H S^2 D = 2.6e11 FLOP
+// against 989 TFLOP/s of dense bf16 tensor-core math (0.26 ms), while
+// q, k, v and out are 168 MB against 3.35 TB/s (0.05 ms).  This design
+// does its products in f32 on the CUDA cores, whose peak is 67 TFLOP/s,
+// so it cannot come within 15x of that bound.  Known gaps, for later
+// work: no tensor cores (mma.sync / wgmma over bf16 tiles), no TMA or
+// cp.async pipeline overlapping the next tile's loads with this tile's
+// math, diagonal tiles computed in full and masked, and no backward
+// kernel (the autograd backward recomputes through the plain version).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kBQ = 64;          // query rows per block
+constexpr int kBK = 64;          // key positions per tile
+constexpr int kRows = kBQ / 16;  // query rows per thread
+constexpr int kCols = kBK / 8;   // score columns per thread
+constexpr int kLoads = 8;        // 16-byte loads a thread keeps in flight
+constexpr float kNegInf = -1e30f;
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+// Widen one 16-byte load to floats: 8 bf16 (a bf16 is the top half of
+// the float with the same bits) or 4 f32.
+template <typename T> __device__ __forceinline__ void unpack(const uint4& r,
+                                                             float* dst);
+template <> __device__ __forceinline__ void unpack<float>(const uint4& r,
+                                                          float* dst) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(__uint_as_float(r.x), __uint_as_float(r.y),
+                  __uint_as_float(r.z), __uint_as_float(r.w));
+}
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(
+    const uint4& r, float* dst) {
+  *reinterpret_cast<float4*>(dst) = make_float4(
+      __uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+      __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(
+      __uint_as_float(r.z << 16), __uint_as_float(r.z & 0xffff0000u),
+      __uint_as_float(r.w << 16), __uint_as_float(r.w & 0xffff0000u));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Max and sum over the eight lanes (consecutive tx) that share a row.
+__device__ __forceinline__ float row_max(float x) {
+  for (int o = 1; o < 8; o <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Stage kBQ (= kBK) rows of D elements into dst (row stride D + 4
+// floats) as f32; source row t is at src + t * stride.  Rows at or past
+// n_rows are zero-filled.  Each thread issues up to kLoads 16-byte loads
+// before it converts and stores any, so their latencies overlap.
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+                                      size_t stride, int n_rows) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  constexpr int kN = kBK * kPerRow;
+  static_assert(kN % (kThreads * kLoads) == 0 || kN < kThreads * kLoads,
+                "tile loads must split evenly");
+#pragma unroll
+  for (int base = 0; base < kN; base += kThreads * kLoads) {
+    uint4 regs[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = base + u * kThreads + threadIdx.x;
+      const int t = i / kPerRow;
+      regs[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < kN && t < n_rows)
+        regs[u] = *reinterpret_cast<const uint4*>(
+            src + t * stride + (i - t * kPerRow) * kVec);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = base + u * kThreads + threadIdx.x;
+      const int t = i / kPerRow;
+      if (i < kN)
+        unpack<T>(regs[u], dst + t * (D + 4) + (i - t * kPerRow) * kVec);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out, int S,
+                     int Skv, int H, int Hkv, int causal, float scale) {
+  constexpr int LD = D + 4;      // row stride of the q and K/V tiles
+  constexpr int PLD = kBK + 4;   // row stride of P
+  constexpr int DG = D / 32;     // float4 output groups per thread
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;              // (kBQ, LD) queries, f32
+  float* kv_s = q_s + kBQ * LD;   // (kBK, LD) K, then V, of one tile
+  float* p_s = kv_s + kBK * LD;   // (kBQ, PLD) probabilities
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heavy tiles first
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y - b * H;
+  const int hk = h / (H / Hkv);
+  const int q0 = qt * kBQ;
+  const int offset = Skv - S;
+  const int tid = threadIdx.x;
+  const int tx = tid & 7;
+  const int ty = tid >> 3;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(Hkv) * D;
+  const T* kb = k + static_cast<size_t>(b) * Skv * kv_stride +
+                static_cast<size_t>(hk) * D;
+  const T* vb = v + static_cast<size_t>(b) * Skv * kv_stride +
+                static_cast<size_t>(hk) * D;
+
+  stage<T, D>(q_s,
+              q + (static_cast<size_t>(b) * S + q0) * q_stride +
+                  static_cast<size_t>(h) * D,
+              q_stride, min(kBQ, S - q0));
+
+  float m[kRows], l[kRows], acc[kRows][4 * DG];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * DG; ++e) acc[r][e] = 0.f;
+  }
+
+  // Key positions this block attends: all of them, or up to its last
+  // real row's causal limit.
+  const int last_row = min(q0 + kBQ, S) - 1;
+  const int kv_end = causal ? min(Skv, last_row + offset + 1) : Skv;
+
+  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+    const int n_valid = min(kBK, Skv - k0);
+    __syncthreads();   // the previous tile's P @ V is done with kv_s, p_s
+    stage<T, D>(kv_s, kb + k0 * kv_stride, kv_stride, n_valid);
+    __syncthreads();
+
+    float s[kRows][kCols];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) s[r][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        qv[r] = *reinterpret_cast<const float4*>(q_s + (4 * ty + r) * LD + d);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(kv_s + (tx + 8 * c) * LD + d);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          s[r][c] = fmaf(qv[r].x, kv.x, s[r][c]);
+          s[r][c] = fmaf(qv[r].y, kv.y, s[r][c]);
+          s[r][c] = fmaf(qv[r].z, kv.z, s[r][c]);
+          s[r][c] = fmaf(qv[r].w, kv.w, s[r][c]);
+        }
+      }
+    }
+
+    // Scale and mask; a tile every row of the block sees whole skips the
+    // per-element checks.
+    const bool whole = n_valid == kBK &&
+                       (!causal || k0 + kBK - 1 <= q0 + offset);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = q0 + 4 * ty + r;
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int col = k0 + tx + 8 * c;
+        float x = s[r][c] * scale;
+        if (!whole && (col >= Skv || (causal && col > row + offset)))
+          x = kNegInf;
+        s[r][c] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[r], row_max(mx));
+      const float alpha = expf(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float p = expf(s[r][c] - m_new);
+        p_s[(4 * ty + r) * PLD + tx + 8 * c] = p;
+        sum += p;
+      }
+      l[r] = l[r] * alpha + row_sum(sum);
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4 * DG; ++e) acc[r][e] *= alpha;
+    }
+    __syncthreads();   // every thread is done with K; P is written
+    stage<T, D>(kv_s, vb + k0 * kv_stride, kv_stride, n_valid);
+    __syncthreads();
+
+#pragma unroll 2
+    for (int j = 0; j < kBK; j += 4) {
+      float4 pr[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        pr[r] = *reinterpret_cast<const float4*>(p_s + (4 * ty + r) * PLD + j);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int g = 0; g < DG; ++g) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              kv_s + (j + u) * LD + 4 * tx + 32 * g);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const float p = lane_of(pr[r], u);
+            acc[r][4 * g] = fmaf(p, vv.x, acc[r][4 * g]);
+            acc[r][4 * g + 1] = fmaf(p, vv.y, acc[r][4 * g + 1]);
+            acc[r][4 * g + 2] = fmaf(p, vv.z, acc[r][4 * g + 2]);
+            acc[r][4 * g + 3] = fmaf(p, vv.w, acc[r][4 * g + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = q0 + 4 * ty + r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    T* o = out + (static_cast<size_t>(b) * S + row) * q_stride +
+           static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int g = 0; g < DG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[4 * tx + 32 * g + e] = from_f32<T>(acc[r][4 * g + e] / denom);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int Skv, int H, int Hkv, int causal, float scale,
+           cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (kBQ * (D + 4) + kBK * (D + 4) + kBQ * (kBK + 4));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), S, Skv, H, Hkv,
+      causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes).  ``bf16`` selects bf16 (1) or
+// f32 (0) for q, k, v and out; D must be 64 or 128.  Returns
+// cudaGetLastError() after the launch: 0 on success.
+extern "C" int flash_attention_forward(const void* q, const void* k,
+                                       const void* v, void* out, int B,
+                                       int S, int Skv, int H, int Hkv, int D,
+                                       int causal, int bf16, float scale,
+                                       void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
+  if (Hkv <= 0 || H % Hkv != 0 || Skv < S ||
+      reinterpret_cast<size_t>(q) % 16 || reinterpret_cast<size_t>(k) % 16 ||
+      reinterpret_cast<size_t>(v) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, B, S, Skv, H, Hkv,
+                                            causal, scale, s)
+                : launch<float, 64>(q, k, v, out, B, S, Skv, H, Hkv, causal,
+                                    scale, s);
+  if (D == 128)
+    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, out, B, S, Skv, H, Hkv,
+                                             causal, scale, s)
+                : launch<float, 128>(q, k, v, out, B, S, Skv, H, Hkv, causal,
+                                     scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

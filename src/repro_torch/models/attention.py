@@ -1,12 +1,15 @@
-"""Attention for the serving path: GQA with rope / qk-norm against a KV
-cache — dense (contiguous or gathered view) or straight off a paged pool,
-for one token per slot (decode) or a window of C tokens per slot
-(chunked prefill, speculative verify).
+"""Attention: GQA with rope / qk-norm — causal self-attention over the
+whole sequence for training (``attention``, kernel B3), and for serving
+against a KV cache, dense (contiguous or gathered view) or straight off
+a paged pool, for one token per slot (decode) or a window of C tokens
+per slot (chunked prefill, speculative verify).
 
-Port of ``repro/models/attention.py`` (``attn_defs``, ``decode_attention``,
-``chunk_prefill_attention`` and the bf16 branches of
-``paged_decode_attention`` and ``paged_chunk_prefill_attention``).
-Rounding sites are the reference's as XLA compiles them: scores come out
+Port of ``repro/models/attention.py`` (``attn_defs``, ``attention`` for
+causal self-attention, ``decode_attention``, ``chunk_prefill_attention``
+and the bf16 branches of ``paged_decode_attention`` and
+``paged_chunk_prefill_attention``).  ``attention``'s rounding sites are
+B3's (f32 scores and probabilities, one rounding of the output).  The
+serving functions' are the reference's as XLA compiles them: scores come out
 of the qk product rounded to the compute dtype, are multiplied in
 float32 by the head-dim scale rounded to the compute dtype (JAX rounds
 the Python-float scale to bf16 as a weak type; XLA's excess precision
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_prefill_attention)
 from repro_torch.kernels.paged_attention.ref import kernel_scale
@@ -71,6 +75,46 @@ def _out_proj(o, wo):
     """o (..., H, dh) @ wo (H, dh, d) -> (..., d)."""
     h, k, d = wo.shape
     return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
+
+
+def _chunk_rows(S: int, q_chunk: int) -> int:
+    """Query rows per chunk of the reference's chunked attention: S split
+    into ``max(1, S // q_chunk)`` equal chunks, or one chunk when they do
+    not divide S."""
+    n_chunks = max(1, S // q_chunk)
+    return S // n_chunks if S % n_chunks == 0 else S
+
+
+def attention(params, x, positions, *, n_heads, n_kv, head_dim,
+              causal=True, qk_norm=False, rope_theta=1e4, q_chunk=1024,
+              kv_x=None, scores_dtype=torch.float32):
+    """Multi-head self-attention over the whole sequence (the training
+    forward).  x: (B, S, d); positions: (B, S), rope's angles.
+
+    Its core is kernel B3 (``kernels.flash_attention.ops``): the CUDA
+    kernel on a CUDA tensor, its plain version on a CPU one.  The causal
+    mask is by sequence index — row i attends keys ``<= i`` — which is
+    the reference's position mask for the positions ``forward`` passes
+    (``arange(S)`` on every row).  B3 keeps scores and probabilities in
+    f32 and rounds once, at its output; the reference's bf16 einsums
+    round the scores and the probabilities to the compute dtype first,
+    so bf16 agreement with it is held to a tolerance (f32 is tight).
+    The backward recomputes ``q_chunk``-row chunks, the reference's
+    per-chunk ``jax.checkpoint``.  Returns (B, S, d).
+    """
+    if kv_x is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_x) is not ported yet (ROADMAP A11, "
+            "whisper)")
+    if scores_dtype != torch.float32:
+        raise NotImplementedError(
+            f"scores_dtype {scores_dtype} is not ported yet (the §Perf "
+            f"bf16-logits knob; ROADMAP A14)")
+    q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm,
+                           rope_theta=rope_theta)
+    o = flash_attention(q, k, v, causal=causal,
+                        q_chunk=_chunk_rows(x.shape[1], q_chunk))
+    return _out_proj(o, params["wo"])
 
 
 def _window_rows(x, positions):

@@ -1,4 +1,5 @@
-"""Model-building primitives: declarative param defs, norms, MLP, rope.
+"""Model-building primitives: declarative param defs, norms, MLP, rope,
+chunked cross-entropy.
 
 Port of ``repro/models/layers.py``.  Parameters are declared as nested
 dicts of ``PDef`` records and drawn by one generic ``init_params``; the
@@ -19,6 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import from_leaves, leaves
+
 
 @dataclasses.dataclass(frozen=True)
 class PDef:
@@ -31,23 +34,6 @@ def _fan_in(shape: tuple) -> int:
     return shape[-2] if len(shape) >= 2 else max(1, shape[-1])
 
 
-def _leaves(defs, prefix=()):
-    """(path, PDef) pairs of a nested dict, keys sorted (the reference's
-    pytree order)."""
-    if isinstance(defs, PDef):
-        return [(prefix, defs)]
-    out = []
-    for k in sorted(defs):
-        out.extend(_leaves(defs[k], prefix + (k,)))
-    return out
-
-
-def _set(tree: dict, path: tuple, value) -> None:
-    for k in path[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[path[-1]] = value
-
-
 def init_params(defs, generator: torch.Generator, device: torch.device,
                 dtype: torch.dtype) -> dict:
     """Draw a nested dict of PDefs on ``device`` and store each leaf once
@@ -56,8 +42,8 @@ def init_params(defs, generator: torch.Generator, device: torch.device,
     the reference's per-use ``.astype(dt)`` of its float32 params gives.
     ``generator`` must live on ``device``; its stream is not JAX's, so
     cross-framework tests carry weights over with ``bridge``."""
-    out: dict = {}
-    for path, d in _leaves(defs):
+    out = []
+    for path, d in leaves(defs):
         if d.init == "zeros":
             a = torch.zeros(d.shape, dtype=dtype, device=device)
         elif d.init == "ones":
@@ -75,8 +61,8 @@ def init_params(defs, generator: torch.Generator, device: torch.device,
                 w = torch.randn(dst.shape, generator=generator,
                                 device=device, dtype=torch.float32)
                 dst.copy_(w.mul_(std))
-        _set(out, path, a)
-    return out
+        out.append((path, a))
+    return from_leaves(out)
 
 
 def stack_defs(defs, n: int):
@@ -141,3 +127,24 @@ def mlp_apply(params: dict, x, kind: str = "swiglu"):
             f"mlp_kind {kind!r} is not ported yet (ROADMAP A2)")
     h = F.silu(x @ params["wg"]) * (x @ params["wi"])
     return h @ params["wo"]
+
+
+def chunked_cross_entropy(h, params, labels, *, chunk: int = 2048,
+                          compute_dtype=torch.bfloat16):
+    """Mean token cross-entropy with the vocab projection applied one
+    sequence chunk at a time, f32 logits per chunk (bounds the logits
+    held at once).  h: (B, S, d); labels: (B, S) int."""
+    B, S = labels.shape
+    lm_head = params["lm_head"].to(compute_dtype)
+    n_chunks = max(1, S // chunk)
+    while S % n_chunks:          # S need not be chunk-aligned: the
+        n_chunks -= 1            # largest divisor, as the reference
+    s = S // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        logits = (h[:, c * s:(c + 1) * s] @ lm_head).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(
+            -1, labels[:, c * s:(c + 1) * s, None].long()).squeeze(-1)
+        total = total + (logz - gold).sum()
+    return total / (B * S)

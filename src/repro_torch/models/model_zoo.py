@@ -1,10 +1,11 @@
-"""Unified model API: family dispatch and drafter pairing (port of
-``repro/models/model_zoo.py``).
+"""Unified model API: family dispatch, drafter pairing and input specs
+(port of ``repro/models/model_zoo.py``).
 
 ``get_model(cfg, device=None)`` returns a ``ModelAPI`` whose functions
 close over the arch config and the device (``None`` = CUDA).  Only the
-dense family is served; it has every hook: decode, chunked prefill and
-speculative verify, each dense and paged.
+dense family is ported; it has the training loss and every serving hook:
+decode, chunked prefill and speculative verify, each dense and paged.
+``input_specs``/``make_batch`` give a training cell's batch.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
@@ -24,8 +25,11 @@ from repro_torch.models import transformer
 class ModelAPI:
     cfg: ArchConfig
     device: torch.device
-    init: Callable            # (generator) -> params on ``device``
+    # (generator, dtype=None) -> params on ``device``, in the compute
+    # dtype unless ``dtype`` is given (training: float32 masters).
+    init: Callable
     defs: Callable            # () -> PDef tree
+    loss: Callable            # (params, batch) -> scalar (autograd)
     decode_step: Callable     # (params, cache, tokens, positions) -> (logits, cache)
     cache_spec: Callable      # (batch, max_seq) -> {name: (shape, dtype)}
     init_cache: Callable      # (batch, max_seq) -> cache on ``device``
@@ -60,8 +64,10 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         device=dev,
-        init=lambda generator: mod.init(cfg, generator, dev),
+        init=lambda generator, dtype=None: mod.init(cfg, generator, dev,
+                                                    dtype),
         defs=lambda: mod.model_defs(cfg),
+        loss=lambda params, batch: mod.lm_loss(cfg, params, batch),
         decode_step=lambda params, cache, tokens, positions:
             mod.decode_step(cfg, params, cache, tokens, positions),
         cache_spec=lambda batch, max_seq: mod.cache_spec(cfg, batch, max_seq),
@@ -134,3 +140,28 @@ def compatible_drafter(target, draft=None) -> ArchConfig:
             f"across the two models, so they must share one tokenizer/"
             f"vocab")
     return draft
+
+
+# ---------------------------------------------------------------------------
+# Input specs (smoke/test batches)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Train/prefill batch specs for one cell: {name: (shape, dtype)}."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} batches (frames / patches) are not "
+            f"ported yet (ROADMAP A11)")
+    B, S = shape.global_batch, shape.seq_len
+    return {"tokens": ((B, S), torch.int32), "labels": ((B, S), torch.int32)}
+
+
+def make_batch(cfg: ArchConfig, shape: ShapeConfig, generator, *,
+               device=None) -> dict:
+    """A synthetic batch matching ``input_specs``: token ids drawn
+    uniformly from the vocab with ``generator`` (which must live on
+    ``device``; ``None`` = CUDA)."""
+    dev = resolve_device(device)
+    return {name: torch.randint(0, cfg.vocab, shp, generator=generator,
+                                device=dev, dtype=dt)
+            for name, (shp, dt) in input_specs(cfg, shape).items()}

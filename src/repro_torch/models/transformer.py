@@ -1,13 +1,17 @@
-"""Decoder-only dense transformer: param defs, init, KV cache, and the
-serving steps — decode, chunked prefill and speculative verify, each
-against a dense cache or straight off a paged pool.
+"""Decoder-only dense transformer: param defs, init, the training
+forward and loss, KV cache, and the serving steps — decode, chunked
+prefill and speculative verify, each against a dense cache or straight
+off a paged pool.
 
-Port of the serving half of ``repro/models/transformer.py`` for the
-dense family.  Layer params are stacked on a leading L axis as in the
-reference; its ``scan`` over layers becomes a Python loop over that
-axis.  Parameters are stored once in the compute dtype (the reference
-keeps float32 and casts at every use — the same bits, half the memory).
-Vocab is padded to a multiple of 256.  MoE is not in this slice.
+Port of ``repro/models/transformer.py`` for the dense family.  Layer
+params are stacked on a leading L axis as in the reference; its ``scan``
+over layers becomes a Python loop over that axis.  Serving stores the
+parameters once in the compute dtype (the reference keeps float32 and
+casts at every use — the same bits, half the memory).  Training keeps
+``param_dtype`` (float32) masters; ``lm_loss`` casts the whole tree to
+the compute dtype once at its entry, inside autograd, which gives the
+bits of the reference's per-use casts and sends float32 gradients to the
+masters.  Vocab is padded to a multiple of 256.  MoE is not ported.
 """
 
 from __future__ import annotations
@@ -16,9 +20,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (PDef, init_params, mlp_apply,
-                                       rms_norm, rms_norm_defs, stack_defs,
+from repro_torch.models.layers import (PDef, chunked_cross_entropy,
+                                       init_params, mlp_apply, rms_norm,
+                                       rms_norm_defs, stack_defs,
                                        swiglu_defs)
+from repro_torch.models.remat import resolve_policy, wrap_layer_body
 
 VOCAB_PAD = 256
 
@@ -31,6 +37,10 @@ def padded_vocab(v: int) -> int:
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return DTYPES[cfg.compute_dtype]
+
+
+def param_dtype(cfg: ArchConfig) -> torch.dtype:
+    return DTYPES[cfg.param_dtype]
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -67,11 +77,13 @@ def model_defs(cfg: ArchConfig) -> dict:
 
 
 def init(cfg: ArchConfig, generator: torch.Generator,
-         device: torch.device) -> dict:
+         device: torch.device, dtype=None) -> dict:
     """Random weights drawn on ``device`` from ``generator`` (which must
-    live there), stored in the compute dtype."""
+    live there), stored in ``dtype``: by default the compute dtype, as
+    serving keeps them; training passes ``param_dtype(cfg)`` for its
+    float32 masters."""
     return init_params(model_defs(cfg), generator, device,
-                       compute_dtype(cfg))
+                       dtype or compute_dtype(cfg))
 
 
 def layer_params(params: dict, l: int) -> dict:
@@ -81,6 +93,66 @@ def layer_params(params: dict, l: int) -> dict:
             return {k: take(v) for k, v in tree.items()}
         return tree[l]
     return take(params["layers"])
+
+
+def cast_params(cfg: ArchConfig, params: dict) -> dict:
+    """The param tree in the compute dtype (a differentiable cast; a
+    no-op for leaves already in it)."""
+    dt = compute_dtype(cfg)
+    if isinstance(params, dict):
+        return {k: cast_params(cfg, v) for k, v in params.items()}
+    return params.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Training forward + loss
+# ---------------------------------------------------------------------------
+
+def block_apply(cfg: ArchConfig, params, h, positions):
+    """One decoder block. h: (B, S, d) -> (B, S, d).  (The reference also
+    returns the MoE aux loss, 0 for the dense family.)"""
+    a = attn.attention(
+        params["attn"], rms_norm(h, params["attn_norm"]), positions,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        causal=True, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+        q_chunk=cfg.q_chunk, scores_dtype=DTYPES[cfg.scores_dtype])
+    h = h + a
+    return h + mlp_apply(params["mlp"], rms_norm(h, params["mlp_norm"]),
+                         cfg.mlp_kind)
+
+
+def forward(cfg: ArchConfig, params, tokens):
+    """tokens (B, S) -> final-normed hidden (B, S, d).  ``params`` are in
+    the compute dtype (``lm_loss`` casts them).  Each layer runs under
+    the config's remat policy (``models/remat.py``)."""
+    _check_family(cfg)
+    B, S = tokens.shape
+    h = params["embedding"][tokens.long()]
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+    def body(h, lp):
+        return block_apply(cfg, lp, h, positions)
+
+    body_fn = wrap_layer_body(body, resolve_policy(cfg))
+    for l in range(cfg.n_layers):
+        h = body_fn(h, layer_params(params, l))
+    return rms_norm(h, params["final_norm"])
+
+
+def lm_loss(cfg: ArchConfig, params, batch):
+    """Mean next-token cross-entropy.  batch: {"tokens": (B, S),
+    "labels": (B, S)}; ``params`` in any float dtype (float32 masters in
+    training), cast to the compute dtype once here."""
+    if "frames" in batch or "patches" in batch:
+        raise NotImplementedError(
+            "audio frames / vision patches are not ported yet (ROADMAP "
+            "A11)")
+    params = cast_params(cfg, params)
+    h = forward(cfg, params, batch["tokens"])
+    labels = batch["labels"]
+    return chunked_cross_entropy(
+        h, params, labels, chunk=min(cfg.loss_chunk, labels.shape[1]),
+        compute_dtype=compute_dtype(cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (B1 decode, B2
-multi-query) against their plain PyTorch versions on the card.  They carry the ``cuda`` marker and
+multi-query, B3 flash attention) against their plain PyTorch versions on
+the card.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -104,3 +105,52 @@ def test_paged_prefill_kernel_matches_plain_and_b1(dims, Q, dtype):
                                      lengths)
     assert torch.equal(q1[:, 0], ops.paged_attention(
         q[:, 0].contiguous(), kp, vp, tables, lengths))
+
+
+def _flash_case(B, S, S_kv, H, Hkv, D, *, dtype, seed=7):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    return mk(B, S, H, D), mk(B, S_kv, Hkv, D), mk(B, S_kv, Hkv, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,causal", [
+    ((2, 1024, 1024, 15, 5, 64), True),    # smollm-360m's heads
+    ((1, 512, 512, 32, 8, 128), True),     # qwen3-8b's heads
+    ((2, 64, 1024, 4, 2, 64), True),       # rectangular causal offset
+    ((2, 256, 256, 6, 2, 64), False),      # non-causal
+    ((2, 1000, 1000, 6, 2, 128), True),    # ragged S
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_matches_plain(dims, causal, dtype):
+    """B3 against its plain version: f32 within 1e-5 of each row's
+    largest output (summation order), bf16 within two bf16 ulps of it
+    (both round once from f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_case(*dims, dtype=dtype)
+    before = fops.flash_attention.launches
+    got = fops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    assert torch.isfinite(got).all()
+    err = (got.float() - want).abs()
+    row = want.abs().amax(dim=-1, keepdim=True)
+    rtol = 1.6e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (err <= rtol * row).all(), float(err.max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_other_head_dims():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    q, k, v = _flash_case(1, 16, 16, 2, 1, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fops.flash_attention(q, k, v)

@@ -95,3 +95,26 @@ def test_chip_smoke_fails_without_cuda():
                          cwd=ROOT)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_train_entry_points_default_to_cuda_and_never_fall_back(
+        monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.steps import build_train
+    from repro_torch.launch.train import train
+    from repro_torch.models import make_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("smollm-360m")
+    shape = ShapeConfig("t", 16, 2, "train")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train(cfg, shape)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, shape, steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pipeline(cfg, shape)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batch(cfg, shape, torch.Generator())
+    assert build_train(cfg, shape, device="cpu").model.device.type == "cpu"
