@@ -37,7 +37,18 @@ Phases (any failure raises, and the script exits non-zero):
               shape; device times of the kernel, the plain version and
               ``scaled_dot_product_attention(is_causal=True,
               enable_gqa=True)`` (the yardstick), the wrapper's host
-              time, and the bound;
+              time, and the bound; then (C9) at head_dim 16, 20 and 192
+              (B=2, S=1000, causal, bf16 and f32), and the Function's
+              gradients at head_dim 20;
+     3d.    — B4, the RWKV-6 WKV kernel, against its plain version
+              (``wkv_chunked_ref``) at rwkv6-3b's training shape (B=4,
+              S=4096, H=40, N=64, chunk 128) and at edges (the smoke
+              width N=16 with chunk 64, chunk 48, N=8), each in bf16 and
+              f32, with and without an initial state; its autograd
+              Function's gradients against autograd through the plain
+              version; device times of the kernel and the plain version
+              (no PyTorch call computes the recurrence, so no library
+              time), the wrapper's host time, and the bound;
   4. ladder — smoke-width qwen3-8b on the card at O2, O4, O5, O6-gather,
               O6-kernel, with chunked prefill (chunks 3 and 8) on O5,
               O6-gather and O6-kernel, and at O7 with the smollm-360m
@@ -75,7 +86,20 @@ Phases (any failure raises, and the script exits non-zero):
               loss, grad_norm, lr and wall time, tokens/s, peak memory,
               and B3's launches (32 forward + 32 remat recompute a step,
               asserted); step 0's loss and grad_norm computed once with
-              B3 and once with the plain attention in its place.
+              B3 and once with the plain attention in its place;
+     6b.    — ``train()`` on the smoke configs of qwen3-8b (head_dim 16),
+              smollm-360m (head_dim 20) and rwkv6-3b (N=16), 3 steps at
+              batch 8 x 128 on the card and on the CPU: the losses held
+              together, B3 / B4 launches counted;
+  7. rwkv   — rwkv6-3b at its published widths (32 layers, d_model 2560,
+              40 heads of 64, d_ff 8960, vocab 65,536), f32 masters, bf16
+              compute, remat full, trained 5 steps through ``train()`` on
+              the synthetic stream from seed 0 at seq 4096, global batch
+              4 (train_4k's 256 cut to 4): per-step loss, grad_norm, wall
+              time, tokens/s, peak memory and B4's launches (32 forward +
+              32 remat recompute a step, asserted); step 0 with B4 and
+              with its plain version in its place at 32 and 2 layers; a
+              ``torch.profiler`` reading of one step.
 
 Prints the card line and a JSON object of kernel numbers on lines before
 the last, writes the detailed numbers to ``chiprun_out/chip_smoke.json``,
@@ -133,6 +157,24 @@ B3_TOL = {"bf16": 1.6e-2, "f32": 1e-5}
 # grad_norm is held only to be finite and within a factor of 10.
 TRAIN_TOL = {32: {"loss": 1e-3, "grad_norm_factor": 10.0},
              2: {"loss": 1e-3, "grad_norm": 1e-2}}
+B4_SOURCE = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
+B4_REPLACES = "src/repro/kernels/rwkv6_wkv/kernel.py:73"
+# |kernel - plain| <= WKV_TOL * (the largest |plain|) for y and for the
+# f32 state: both sides compute in f32 and differ only in summation
+# order; bf16 y may also round one bf16 ulp of itself the other way.
+WKV_TOL = 2e-5
+# Phase 7's global batch (train_4k's 256 cut to one card; PERF.md §4).
+RWKV_BATCH = 4
+# Phase 6b: each smoke loss on the card within this of the CPU's
+# (relative).  Both run bf16 compute from the same weights and batches;
+# they differ in the GEMMs' summation order and in B3/B4 against their
+# plain versions (each rounds once from f32), over 3 small steps.
+SMOKE_TRAIN_TOL = 5e-3
+# Phase 7: step 0 with B4 against its plain version (relative).  Both
+# compute the WKV in f32 and round y once to bf16.  rwkv's projections
+# are 2-D, so the initialiser's fan-in is right (unlike smollm's, C8);
+# grad_norm is held at 2 layers and read at 32.
+RWKV_TRAIN_TOL = {32: {"loss": 1e-3}, 2: {"loss": 1e-3, "grad_norm": 1e-2}}
 
 
 def log(msg: str) -> None:
@@ -552,6 +594,33 @@ def attended_pairs(S, S_kv, causal) -> int:
     return sum(min(S_kv, r + off + 1) for r in range(S))
 
 
+def grad_errors(label: str, function, plain, ins, w, names) -> list:
+    """Each input's gradient through ``function`` (a kernel's autograd
+    Function) against autograd through ``plain`` on the same inputs, as a
+    share of the gradient's largest magnitude; raises beyond 1e-5.  The
+    loss weights the first output by ``w`` and sums any others."""
+    grads = []
+    for fn in (function, plain):
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        ((out[0] * w).sum() + sum(o.sum() for o in out[1:])).backward()
+        grads.append([t.grad.detach().clone() for t in ins])
+        for t in ins:
+            t.grad = None
+    errs = []
+    for got, want, what in zip(*grads, names):
+        e = float((got - want).abs().max() / want.abs().max())
+        errs.append(e)
+        if not e <= 1e-5:
+            raise AssertionError(f"{label}: d{what} off autograd through "
+                                 f"the plain version by {e:.3e} of its "
+                                 f"scale")
+    log(f"[kernel] {label} vs autograd through the plain version, f32: "
+        + ", ".join(f"d{n} {e:.3e}" for n, e in zip(names, errs))
+        + " of each gradient's scale (tolerance 1e-5)")
+    return errs
+
+
 def phase_flash_kernel() -> dict:
     """Phase 3c: B3 against its plain version at the training shapes and
     edges, in bf16 and f32; the autograd Function's gradients against
@@ -591,27 +660,13 @@ def phase_flash_kernel() -> dict:
         *main_dims, dtype=torch.float32, seed=40))
     w = torch.randn(q.shape, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(41))
-    grads = {}
-    for name, fn in (("function", lambda: ops.flash_attention(
-            q, k, v, causal=True, q_chunk=1024)),
-                     ("plain", lambda: ref.flash_attention_ref(
-                         q, k, v, causal=True))):
-        (fn() * w).sum().backward()
-        grads[name] = [t.grad.detach().clone() for t in (q, k, v)]
-        for t in (q, k, v):
-            t.grad = None
-    grad_err = []
-    for got, want, what in zip(grads["function"], grads["plain"], "qkv"):
-        e = float((got - want).abs().max() / want.abs().max())
-        grad_err.append(e)
-        if not e <= 1e-5:
-            raise AssertionError(f"B3 Function d{what} off autograd through "
-                                 f"the plain version by {e:.3e} of its scale")
-    log(f"[kernel] B3 Function gradients (chunks of 1024 query rows) vs "
-        f"autograd through the plain version, f32, smollm layer shape: "
-        f"dq {grad_err[0]:.3e}, dk {grad_err[1]:.3e}, dv {grad_err[2]:.3e} "
-        f"of each gradient's scale (tolerance 1e-5)")
-    del q, k, v, w, grads
+    grad_err = grad_errors(
+        "B3 Function gradients (chunks of 1024 query rows, smollm layer "
+        "shape)",
+        lambda: ops.flash_attention(q, k, v, causal=True, q_chunk=1024),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        (q, k, v), w, "qkv")
+    del q, k, v, w
     torch.cuda.empty_cache()
 
     B, S, S_kv, H, Hkv, D = main_dims
@@ -653,6 +708,184 @@ def phase_flash_kernel() -> dict:
         f"{nbytes} B, {flops} FLOP); the wrapper's host time per call "
         f"{res['wrapper_host_ms']:.4f} ms")
     del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_widths() -> dict:
+    """Phase 3c, head widths (C9): B3 against its plain version at
+    head_dim 16 (qwen3-8b smoke), 20 (smollm-360m smoke; 40-byte bf16
+    rows, the scalar loads) and 192 (nemotron-4-340b), bf16 and f32,
+    causal; the Function's gradients at head_dim 20."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    errs = {}
+    for i, (H, Hkv, D) in enumerate(((4, 2, 16), (3, 1, 20), (8, 2, 192))):
+        name = f"head_dim {D} B=2 S=1000 H={H} Hkv={Hkv} causal"
+        for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            case = flash_case(2, 1000, 1000, H, Hkv, D, dtype=dt,
+                              seed=50 + i)
+            errs[f"{name} {kind}"] = check_flash(name, case, True, kind)
+    q, k, v = (t.requires_grad_() for t in flash_case(
+        2, 512, 512, 3, 1, 20, dtype=torch.float32, seed=55))
+    w = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(56))
+    grad_err = grad_errors(
+        "B3 Function gradients at head_dim 20 (B=2, S=512, H=3, Hkv=1, "
+        "chunks of 128 rows)",
+        lambda: ops.flash_attention(q, k, v, causal=True, q_chunk=128),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        (q, k, v), w, "qkv")
+    torch.cuda.empty_cache()
+    return {"errors": errs, "grad_rel_err_head_dim_20": grad_err}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: B4 against its plain version
+# ---------------------------------------------------------------------------
+
+def wkv_case(B, S, H, N, *, dtype, state: bool, seed: int):
+    """r, k, v (B, S, H, N), the log-decay lw in [-0.35, 0] (the model's
+    clamp), u (H, N) and an f32 state or None."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s, sc=0.5: (torch.randn(s, generator=g, device="cuda")
+                             * sc).to(dtype)
+    lw = -(torch.rand((B, S, H, N), generator=g, device="cuda")
+           * 0.35).to(dtype)
+    s0 = (torch.randn((B, H, N, N), generator=g, device="cuda") * 0.2
+          if state else None)
+    return (mk(B, S, H, N), mk(B, S, H, N), mk(B, S, H, N), lw,
+            mk(H, N, sc=0.1), s0)
+
+
+def check_wkv(name, case, Q, kind) -> float:
+    """B4 vs ``wkv_chunked_ref`` on one case (WKV_TOL); max |y
+    difference|."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops, ref
+
+    r, k, v, lw, u, s0 = case
+    y, sf = ops.wkv(r, k, v, lw, u, init_state=s0, chunk=Q)
+    torch.cuda.synchronize()
+    wy, ws = ref.wkv_chunked_ref(r, k, v, lw, u, init_state=s0, chunk=Q)
+    if not (torch.isfinite(y).all() and torch.isfinite(sf).all()):
+        raise AssertionError(f"B4 {name} {kind}: non-finite output")
+    wy = wy.float()
+    ey = (y.float() - wy).abs()
+    scale = wy.abs().max()
+    es = float((sf - ws).abs().max() / ws.abs().max())
+    rel_y = float(ey.max() / scale)
+    bad_y = ey > WKV_TOL * scale + (2.0 ** -7 * wy.abs() if kind == "bf16"
+                                    else 0.0)
+    if bad_y.any() or not es <= WKV_TOL:
+        raise AssertionError(
+            f"B4 {name} {kind}: {int(bad_y.sum())} y elements beyond "
+            f"tolerance (max err {float(ey.max())}), state off by {es:.3e} "
+            f"of its scale")
+    log(f"[kernel] B4 {name} {kind}: max |y kernel - plain| = "
+        f"{float(ey.max()):.3e} ({rel_y:.3e} of the largest |y|), state "
+        f"{es:.3e} of its largest |S| (tolerance {WKV_TOL} of the scale"
+        f"{', plus one bf16 ulp of each y' if kind == 'bf16' else ''})")
+    return float(ey.max())
+
+
+def phase_wkv_kernel() -> dict:
+    """Phase 3d: B4 against its plain version at rwkv6-3b's training
+    shape (B = phase 7's batch, S=4096, H=40, N=64, chunk 128) in bf16
+    and f32, with and without a state, and at edges (the smoke width
+    N=16 with Q=64, Q=48, N=8); the Function's gradients against
+    autograd through the plain version; times at the training shape."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops, ref
+
+    B = RWKV_BATCH
+    main = (B, 4096, 40, 64)
+    cases = [
+        (f"rwkv6-3b training shape B={B} S=4096 H=40 N=64 Q=128", main, 128),
+        ("smoke width B=4 S=64 H=4 N=16 Q=64", (4, 64, 4, 16), 64),
+        ("Q=48 B=2 S=96 H=6 N=64", (2, 96, 6, 64), 48),
+        ("N=8 B=2 S=256 H=8 N=8 Q=128", (2, 256, 8, 8), 128),
+    ]
+    errs = {}
+    for i, (name, dims, Q) in enumerate(cases):
+        for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for state in (False, True):
+                case = wkv_case(*dims, dtype=dt, state=state, seed=60 + i)
+                label = f"{name}{' s0' if state else ''}"
+                errs[f"{label} {kind}"] = check_wkv(label, case, Q, kind)
+                del case
+    torch.cuda.empty_cache()
+
+    # The Function: kernel forward, gradients recomputed through the
+    # plain version; against autograd through the plain version.
+    ins = [t.requires_grad_() for t in wkv_case(
+        2, 512, 8, 64, dtype=torch.float32, state=True, seed=70)]
+    w = torch.randn(ins[0].shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(71))
+    grad_err = grad_errors(
+        "B4 Function gradients (B=2, S=512, H=8, N=64, s0)",
+        lambda: ops.wkv(*ins[:5], init_state=ins[5], chunk=128),
+        lambda: ref.wkv_chunked_ref(*ins[:5], init_state=ins[5], chunk=128),
+        ins, w, ("r", "k", "v", "lw", "u", "s0"))
+    del ins, w
+    torch.cuda.empty_cache()
+
+    Bm, S, H, N = main
+    r, k, v, lw, u, _ = wkv_case(*main, dtype=torch.bfloat16, state=False,
+                                 seed=60)
+    res = {
+        "ms": time_ms(lambda: ops.wkv(r, k, v, lw, u, chunk=128)),
+        "wrapper_host_ms": host_ms(lambda: ops.wkv(r, k, v, lw, u,
+                                                   chunk=128), reps=20),
+        "plain_ms": time_ms(lambda: ref.wkv_chunked_ref(r, k, v, lw, u,
+                                                        chunk=128), reps=10),
+        "library_ms": None,
+    }
+    # Forward and backward of the Function at the same shape: its
+    # backward recomputes through the plain version in f32 under
+    # autograd, once per layer a training step.
+    ins = [t.requires_grad_() for t in (r, k, v, lw, u)]
+    gy = torch.randn_like(r)
+    res["function_fwd_bwd_ms"] = time_ms(
+        lambda: torch.autograd.grad(ops.wkv(*ins, chunk=128)[0], ins, gy),
+        reps=5, warmup=1)
+    del ins, gy
+    # Bytes: r, k, v, lw read once and y written once (u and the state
+    # are 1e-4 of that).  Operations of the chunked form: per (b, h,
+    # chunk) the (Q, Q) scores and their product with v (2 Q^2 N FMA),
+    # the state read and update (2 Q N^2 FMA).
+    nbytes = sum(t.numel() * t.element_size() for t in (r, k, v, lw, r))
+    Q = 128
+    flops = 2 * Bm * H * (S // Q) * (2 * Q * Q * N + 2 * Q * N * N)
+    bound_ms, bound_by = bound(nbytes, flops)
+    main_key = f"{cases[0][0]} bf16"
+    out = {
+        "name": "rwkv6_wkv",
+        "route": "cuda",
+        "source": B4_SOURCE,
+        "replaces": B4_REPLACES,
+        "launches": None,
+        "max_abs_err": errs[main_key],
+        **res,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "shape": main_key,
+        "bytes": nbytes,
+        "flops": flops,
+        "errors": errs,
+        "grad_rel_err": grad_err,
+    }
+    log(f"[kernel] B4 ({out['shape']}): kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, library: none (no PyTorch call "
+        f"computes the WKV recurrence), bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes} B, {flops} FLOP); the wrapper's host time "
+        f"per call {res['wrapper_host_ms']:.4f} ms; the Function's forward "
+        f"and backward (recomputed through the plain version) "
+        f"{res['function_fwd_bwd_ms']:.4f} ms")
+    del r, k, v, lw, u
     torch.cuda.empty_cache()
     return out
 
@@ -1117,7 +1350,7 @@ def phase_full(card: str) -> dict:
                      params=params, **kw)
     launches = ops.paged_attention.launches
     b2_launches = ops.paged_prefill_attention.launches
-    no_b3("(b)")
+    no_training_kernels("(b)")
     peak = torch.cuda.max_memory_allocated()
     if out["paged_attn"] != "kernel":
         raise AssertionError(f"full width: served through "
@@ -1222,7 +1455,7 @@ def run_chunked(model, params, cut_cfg, cut_params, reqs, *, prestaged_tokens,
     reset_launches()
     out = serve_counted(eng, reqs)
     b1, b2 = ops.paged_attention.launches, ops.paged_prefill_attention.launches
-    no_b3("(d)")
+    no_training_kernels("(d)")
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     chunks = sum(-(-len(p) // C) for p, _ in reqs)
     if eng.prefill_mode != "chunked":
@@ -1299,7 +1532,7 @@ def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
     reset_launches()
     out = serve_counted(eng, reqs)
     b1, b2 = ops.paged_attention.launches, ops.paged_prefill_attention.launches
-    no_b3("(e)")
+    no_training_kernels("(e)")
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     if b2 % L or b1 % L or b1 // L + b2 // L != out["dispatches"]:
         raise AssertionError(f"(e) launches B2 {b2}, B1 {b1}: want {L} x "
@@ -1330,32 +1563,34 @@ def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
 # Phase 6: train smollm-360m at full width
 # ---------------------------------------------------------------------------
 
-def reset_launches() -> None:
+def _counted():
+    """Every kernel wrapper of the port (each counts its launches)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
 
-    for fn in (pops.paged_attention, pops.paged_prefill_attention,
-               fops.flash_attention):
+    return (pops.paged_attention, pops.paged_prefill_attention,
+            fops.flash_attention, wops.wkv)
+
+
+def reset_launches() -> None:
+    for fn in _counted():
         fn.launches = 0
 
 
-def no_b3(run: str) -> None:
-    """Serving never runs the training attention kernel."""
+def no_training_kernels(run: str) -> None:
+    """Serving never runs the training kernels (B3, B4)."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
 
-    if fops.flash_attention.launches:
-        raise AssertionError(f"{run}: B3 launched "
-                             f"{fops.flash_attention.launches} times in a "
-                             f"serving run")
+    for name, fn in (("B3", fops.flash_attention), ("B4", wops.wkv)):
+        if fn.launches:
+            raise AssertionError(f"{run}: {name} launched {fn.launches} "
+                                 f"times in a serving run")
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.paged_attention import ops as pops
-
-    return {fn.__name__: fn.launches
-            for fn in (pops.paged_attention, pops.paged_prefill_attention,
-                       fops.flash_attention)}
+    return {fn.__name__: fn.launches for fn in _counted()}
 
 
 def profile_train_step(art, params, opt, batch) -> dict:
@@ -1394,6 +1629,8 @@ def _kernel_kind(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in name:
         return "B3"
+    if "wkv_fwd_kernel" in name:
+        return "B4"
     if any(t in low for t in ("gemm", "nvjet", "cutlass")):
         return "GEMM f32" if "f32f32" in low or "sgemm" in low \
             else "GEMM bf16"
@@ -1410,90 +1647,89 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def phase_train() -> dict:
-    """Phase 6: step 0's loss and grad_norm with B3 and with the plain
-    attention in its place, then 5 steps of ``train()``."""
+def train_full_width(cfg, want: dict, B: int, *, kernel, ops_module, plain,
+                     tol: dict, tag: str) -> dict:
+    """Phases 6 and 7: ``cfg`` (checked against ``want``) at its
+    published widths, f32 masters, bf16 compute, remat full, global batch
+    ``B`` at seq 4096.  Step 0's loss and grad_norm computed once with
+    the kernel and once with its plain version in its place (patched in
+    as ``ops_module._forward``: same Function, same backward), at the
+    full depth and at 2 layers, held to ``tol``; then 5 steps of
+    ``train()`` as a user calls it, the launches of ``kernel`` (the
+    counted wrapper) read step by step: one forward and one remat
+    recompute a layer; then one profiled step."""
     import contextlib
     import dataclasses
     from unittest import mock
 
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.launch import steps
     from repro_torch.launch.train import train
     from repro_torch.optim import adamw
 
-    cfg = get_config("smollm-360m")
-    want = dict(n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
-                head_dim=64, d_ff=2560, vocab=49_152, param_dtype="float32",
-                compute_dtype="bfloat16", remat=True, q_chunk=1024)
     got = {k: getattr(cfg, k) for k in want}
     if got != want:
-        raise AssertionError(f"smollm-360m config {got}, want {want}")
-    B, S, n_steps = 8, 4096, 5
-    shape = ShapeConfig("train_4k cut to batch 8", S, B, "train")
+        raise AssertionError(f"{cfg.name} config {got}, want {want}")
+    S, n_steps = 4096, 5
+    shape = ShapeConfig(f"train_4k cut to batch {B}", S, B, "train")
     L = cfg.n_layers
+    name = kernel.__name__
 
-    # Step 0 twice on the same params and batch: B3, then the plain
-    # attention in B3's place (same Function, same chunked backward); at
-    # the full 32 layers and at 2.
     batch = {k: v.cuda() for k, v in
              SyntheticLM(cfg.vocab, S, B, seed=0).batch_at(0).items()}
-    plain = lambda q, k, v, causal: fref.flash_attention_ref(
-        q, k, v, causal=causal)
     step0 = {}
     for depth in (L, 2):
         c = dataclasses.replace(cfg, n_layers=depth)
         art = steps.build_train(c, shape)
         params = art.init_params(
             torch.Generator(device="cuda").manual_seed(0))
+        if depth == L:
+            n_params = sum(p.numel() for p in _leaves(params))
         got = {}
-        for name in ("kernel", "plain"):
+        for run in ("kernel", "plain"):
             reset_launches()
-            patch = (mock.patch.object(fops, "_forward", plain)
-                     if name == "plain" else contextlib.nullcontext())
+            patch = (mock.patch.object(ops_module, "_forward", plain)
+                     if run == "plain" else contextlib.nullcontext())
             with patch:
                 loss, grads = steps.value_and_grad(art.model.loss, params,
                                                    batch)
-            got[name] = {"loss": float(loss),
-                         "grad_norm": float(adamw.global_norm(grads)),
-                         "b3_launches": fops.flash_attention.launches}
+            got[run] = {"loss": float(loss),
+                        "grad_norm": float(adamw.global_norm(grads)),
+                        "launches": kernel.launches}
             del grads
             torch.cuda.empty_cache()
-        if got["kernel"]["b3_launches"] != 2 * depth or \
-                got["plain"]["b3_launches"] != 0:
-            raise AssertionError(f"step 0 at {depth} layers: B3 launches "
-                                 f"{got}")
-        tol = TRAIN_TOL[depth]
+        if got["kernel"]["launches"] != 2 * depth or \
+                got["plain"]["launches"] != 0:
+            raise AssertionError(f"step 0 at {depth} layers: {name} "
+                                 f"launches {got}")
+        t = tol[depth]
         k_, p_ = got["kernel"], got["plain"]
         rel = {x: abs(k_[x] - p_[x]) / abs(p_[x])
                for x in ("loss", "grad_norm")}
         got["rel"] = rel
         step0[depth] = got
-        log(f"[train] step 0 at {depth} layers, kernel B3: loss "
+        log(f"[{tag}] step 0 at {depth} layers, kernel {name}: loss "
             f"{k_['loss']:.6f}, grad_norm {k_['grad_norm']:.6e}; plain "
-            f"attention: loss {p_['loss']:.6f}, grad_norm "
+            f"version: loss {p_['loss']:.6f}, grad_norm "
             f"{p_['grad_norm']:.6e}; relative differences: loss "
             f"{rel['loss']:.3e}, grad_norm {rel['grad_norm']:.3e} "
-            f"(tolerances {tol})")
+            f"(tolerances {t})")
         ratio = k_["grad_norm"] / p_["grad_norm"]
-        if not (rel["loss"] <= tol["loss"]
+        if not (rel["loss"] <= t["loss"]
                 and math.isfinite(k_["grad_norm"])
-                and rel["grad_norm"] <= tol.get("grad_norm", math.inf)
-                and 1 / tol.get("grad_norm_factor", math.inf) <= ratio
-                <= tol.get("grad_norm_factor", math.inf)):
-            raise AssertionError(f"step 0 at {depth} layers: B3 and plain "
-                                 f"differ beyond {tol}: {got}")
+                and rel["grad_norm"] <= t.get("grad_norm", math.inf)
+                and 1 / t.get("grad_norm_factor", math.inf) <= ratio
+                <= t.get("grad_norm_factor", math.inf)):
+            raise AssertionError(f"step 0 at {depth} layers: {name} and "
+                                 f"plain differ beyond {t}: {got}")
         del params, art
         torch.cuda.empty_cache()
     del batch
 
     # The main path: train() as a user calls it, its step function
-    # wrapped to read B3's launches step by step.
+    # wrapped to read the kernel's launches step by step.
     per_step = []
     build = steps.build_train
 
@@ -1502,9 +1738,9 @@ def phase_train() -> dict:
         step_fn = art.step_fn
 
         def counted(*a):
-            before = fops.flash_attention.launches
+            before = kernel.launches
             res = step_fn(*a)
-            per_step.append(fops.flash_attention.launches - before)
+            per_step.append(kernel.launches - before)
             return res
 
         art.step_fn = counted
@@ -1516,14 +1752,13 @@ def phase_train() -> dict:
         out = train(cfg, shape, steps=n_steps, seed=0)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    if per_step != [2 * L] * n_steps or \
-            launches["flash_attention"] != n_steps * 2 * L:
+    if per_step != [2 * L] * n_steps or launches[name] != n_steps * 2 * L:
         raise AssertionError(
-            f"B3 launches per step {per_step} (total "
-            f"{launches['flash_attention']}); want {2 * L} a step ({L} "
-            f"forward + {L} remat recompute)")
-    if launches["paged_attention"] or launches["paged_prefill_attention"]:
-        raise AssertionError(f"serving kernels ran in training: {launches}")
+            f"{name} launches per step {per_step} (total {launches[name]}); "
+            f"want {2 * L} a step ({L} forward + {L} remat recompute)")
+    if any(n for k, n in launches.items() if k != name):
+        raise AssertionError(f"other kernels ran in {cfg.name} training: "
+                             f"{launches}")
     out_metrics = out["metrics"]
     losses = [m["loss"] for m in out_metrics]
     if len(losses) != n_steps or not all(map(math.isfinite, losses)):
@@ -1532,15 +1767,15 @@ def phase_train() -> dict:
     steady = step_ms[1:]
     tok_s = B * S / (statistics.mean(steady) / 1e3)
     for m, ms in zip(out_metrics, step_ms):
-        log(f"[train] step {m['step']}: loss {m['loss']:.6f}, grad_norm "
+        log(f"[{tag}] step {m['step']}: loss {m['loss']:.6f}, grad_norm "
             f"{m['grad_norm']:.6e}, lr {m['lr']:.4e}, wall {ms:.1f} ms")
-    log(f"[train] smollm-360m full width, B={B} x S={S}, remat full: steps "
-        f"2-{n_steps} {statistics.mean(steady):.1f} ms a step (each "
-        f"{', '.join(f'{x:.1f}' for x in steady)}), {tok_s:.0f} tokens/s; "
-        f"peak device memory {peak / 2**30:.2f} GiB; B3 launches "
-        f"{launches['flash_attention']}, per step {per_step} ({L} forward "
-        f"+ {L} recompute); step 0 loss equal to the "
-        f"B3 check's: {losses[0] == step0[L]['kernel']['loss']}")
+    log(f"[{tag}] {cfg.name} full width ({n_params} params), B={B} x "
+        f"S={S}, remat full: steps 2-{n_steps} {statistics.mean(steady):.1f} "
+        f"ms a step (each {', '.join(f'{x:.1f}' for x in steady)}), "
+        f"{tok_s:.0f} tokens/s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"{name} launches {launches[name]}, per step {per_step} ({L} "
+        f"forward + {L} recompute); step 0 loss equal to the kernel "
+        f"check's: {losses[0] == step0[L]['kernel']['loss']}")
     del out
     torch.cuda.empty_cache()
 
@@ -1552,20 +1787,138 @@ def phase_train() -> dict:
     del params, batch, art
     torch.cuda.empty_cache()
     if prof["device_ms"]:
-        log(f"[train] profile of one step: wall {prof['wall_ms']:.1f} ms, "
+        log(f"[{tag}] profile of one step: wall {prof['wall_ms']:.1f} ms, "
             f"device busy {prof['device_ms']:.1f} ms (idle share <= "
             f"{prof['idle_share']:.3f}); by kind: " + "; ".join(
                 f"{k} {v:.1f}" for k, v in prof["by_kind_ms"].items())
             + "; top: " + "; ".join(
                 f"{k[:60]} {v:.1f}" for k, v in prof["top"]))
     else:
-        log("[train] profile of one step: the profiler saw no device time")
-    return {"config": want, "batch": B, "seq": S, "steps": n_steps,
-            "metrics": out_metrics,
-            "step_ms": step_ms, "steady_ms": statistics.mean(steady),
-            "tokens_per_s": tok_s, "peak_bytes": peak, "launches": launches,
-            "b3_launches_per_step": per_step,
-            "step0": step0, "profile": prof}
+        log(f"[{tag}] profile of one step: the profiler saw no device time")
+    return {"config": want, "params": n_params, "batch": B, "seq": S,
+            "steps": n_steps, "metrics": out_metrics, "step_ms": step_ms,
+            "steady_ms": statistics.mean(steady), "tokens_per_s": tok_s,
+            "peak_bytes": peak, "launches": launches,
+            "launches_per_step": per_step, "step0": step0, "profile": prof}
+
+
+def phase_train() -> dict:
+    """Phase 6: smollm-360m at its published widths, global batch 8, B3
+    at the core of every layer's attention (``train_full_width``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    want = dict(n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
+                head_dim=64, d_ff=2560, vocab=49_152, param_dtype="float32",
+                compute_dtype="bfloat16", remat=True, q_chunk=1024)
+    return train_full_width(
+        get_config("smollm-360m"), want, 8, kernel=fops.flash_attention,
+        ops_module=fops,
+        plain=lambda q, k, v, causal: fref.flash_attention_ref(
+            q, k, v, causal=causal),
+        tol=TRAIN_TOL, tag="train")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: smoke-width training on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def phase_smoke_train() -> dict:
+    """Phase 6b (C9 and B4): ``train()`` on the smoke configs of
+    qwen3-8b (head_dim 16), smollm-360m (head_dim 20) and rwkv6-3b (N =
+    16), 3 steps at the training CLI's smoke shape (batch 8 x 128), on
+    the card and on the CPU from the same weights; the losses held to
+    SMOKE_TRAIN_TOL."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import param_dtype
+    from repro_torch.tree import map_tree
+
+    shape = ShapeConfig("smoke_train", 128, 8, "train")
+    n_steps = 3
+    build = steps.build_train
+
+    def same_weights(*args, **kwargs):
+        # A CUDA generator draws other numbers than a CPU one from the
+        # same seed: both runs draw the weights on the CPU, seed 0.
+        art = build(*args, **kwargs)
+        cpu = get_model(art.cfg, device="cpu")
+        art.init_params = lambda generator: map_tree(
+            lambda t: t.to(art.model.device),
+            cpu.init(torch.Generator().manual_seed(0),
+                     dtype=param_dtype(art.cfg)))
+        return art
+
+    out = {}
+    for arch, kernel in (("qwen3-8b", "flash_attention"),
+                         ("smollm-360m", "flash_attention"),
+                         ("rwkv6-3b", "wkv")):
+        cfg = get_smoke(arch)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    mock.patch.object(steps, "build_train", same_weights):
+                res = train(cfg, shape, steps=n_steps, seed=0, device=dev)
+            runs[dev] = {"losses": [m["loss"] for m in res["metrics"]],
+                         "grad_norms": [m["grad_norm"]
+                                        for m in res["metrics"]],
+                         "launches": read_launches()}
+        # Smoke configs run without remat: one launch a layer a step.
+        want = {k: 0 for k in runs["cuda"]["launches"]}
+        want[kernel] = n_steps * cfg.n_layers
+        if runs["cuda"]["launches"] != want or any(
+                runs["cpu"]["launches"].values()):
+            raise AssertionError(f"{arch} smoke training launches: card "
+                                 f"{runs['cuda']['launches']}, cpu "
+                                 f"{runs['cpu']['launches']}; want {want} "
+                                 f"on the card, none on the CPU")
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(runs["cuda"]["losses"], runs["cpu"]["losses"])]
+        if len(rel) != n_steps or not max(rel) <= SMOKE_TRAIN_TOL:
+            raise AssertionError(f"{arch} smoke training: card losses "
+                                 f"{runs['cuda']['losses']} vs CPU "
+                                 f"{runs['cpu']['losses']}")
+        log(f"[train] {arch} smoke, batch 8 x 128, 3 steps: card losses "
+            + ", ".join(f"{x:.6f}" for x in runs["cuda"]["losses"])
+            + "; CPU " + ", ".join(f"{x:.6f}" for x in runs["cpu"]["losses"])
+            + f"; at most {max(rel):.3e} apart (tolerance "
+            f"{SMOKE_TRAIN_TOL}); {kernel} launches on the card "
+            f"{want[kernel]}")
+        out[arch] = {**runs, "rel": rel}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: train rwkv6-3b at full width
+# ---------------------------------------------------------------------------
+
+def phase_rwkv_train() -> dict:
+    """Phase 7: rwkv6-3b at its published widths, global batch
+    RWKV_BATCH, B4 at the core of every layer's time-mix
+    (``train_full_width``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
+    from repro_torch.kernels.rwkv6_wkv import ref as wref
+
+    want = dict(n_layers=32, d_model=2560, d_ff=8960, vocab=65_536,
+                rwkv_head_dim=64, param_dtype="float32",
+                compute_dtype="bfloat16", remat=True)
+    return train_full_width(
+        get_config("rwkv6-3b"), want, RWKV_BATCH, kernel=wops.wkv,
+        ops_module=wops,
+        plain=lambda r, k, v, lw, u, s0, Q: wref.wkv_chunked_ref(
+            r, k, v, lw, u, init_state=s0, chunk=Q),
+        tol=RWKV_TRAIN_TOL, tag="rwkv")
 
 
 def _leaves(tree):
@@ -1611,10 +1964,14 @@ def main() -> int:
     b2 = phase_prefill_kernel(b1_main)
     del b1_main
     b3 = phase_flash_kernel()
+    b3["widths"] = phase_flash_widths()
+    b4 = phase_wkv_kernel()
     ladder = phase_ladder()
     full = phase_full(card)
     torch.cuda.empty_cache()
     trained = phase_train()
+    smoke_trained = phase_smoke_train()
+    rwkv = phase_rwkv_train()
     # Launches on the main path: B1 in run (b), B2 in run (d); each
     # run's counts beside them.
     runs = {"b": {"paged_attention": full["kernel_launches"],
@@ -1627,10 +1984,14 @@ def main() -> int:
     # B3 on its main path: phase 6's train() run.
     b3["launches"] = trained["launches"]["flash_attention"]
     b3["launches_by_run"] = {"train": b3["launches"]}
-    kerns = [b1, b2, b3]
+    # B4 on its main path: phase 7's train() run.
+    b4["launches"] = rwkv["launches"]["wkv"]
+    b4["launches_by_run"] = {"train rwkv6-3b": b4["launches"]}
+    kerns = [b1, b2, b3, b4]
 
     result = {"card": card, "kernels": kerns, "ladder": ladder,
-              "full": full, "train": trained,
+              "full": full, "train": trained, "smoke_train": smoke_trained,
+              "train_rwkv": rwkv,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,13 +1,15 @@
-"""Config registry of the port: only the archs it runs — qwen3-8b and
-smollm-360m (its speculative drafter, and the training CLI's default)."""
+"""Config registry of the port: only the archs it runs — qwen3-8b,
+smollm-360m (its speculative drafter, and the training CLI's default)
+and rwkv6-3b (trained)."""
 
-from repro_torch.configs import qwen3_8b, smollm_360m
+from repro_torch.configs import qwen3_8b, rwkv6_3b, smollm_360m
 from repro_torch.configs.base import (ArchConfig, SHAPES,  # noqa: F401
                                       ShapeConfig)
 
 _MODULES = {
     "qwen3-8b": qwen3_8b,
     "smollm-360m": smollm_360m,
+    "rwkv6-3b": rwkv6_3b,
 }
 
 ARCH_NAMES = tuple(_MODULES)
@@ -18,7 +20,7 @@ def _module(name: str):
         return _MODULES[name]
     except KeyError:
         raise KeyError(
-            f"arch {name!r} is not ported yet (repro_torch serves "
+            f"arch {name!r} is not ported yet (repro_torch runs "
             f"{ARCH_NAMES}; see ROADMAP queue A)") from None
 
 

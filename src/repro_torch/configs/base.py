@@ -1,10 +1,13 @@
-"""Architecture and shape configs (port copy of the dense-family fields).
+"""Architecture and shape configs (port copy of the fields it reads).
 
 The fields of ``repro/configs/base.py::ArchConfig`` that the dense
-serving and training paths read, with the same names and defaults, and
-``ShapeConfig``/``SHAPES``.  Families and features outside the port
-(MoE, recurrent, enc-dec, relu2 MLPs) are rejected by the model code,
-not silently ignored.
+serving and training paths and the rwkv6 training path read, with the
+same names and defaults, and ``ShapeConfig``/``SHAPES``.  The
+reference's sharding and scan knobs (``constrain`` axes,
+``unroll_layers``) have no counterpart: the port runs on one device and
+loops over layers in Python.  Families and features outside the port
+(MoE, mamba, hybrid, enc-dec, relu2 MLPs) are rejected by the model
+code, not silently ignored.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # only "dense" is served by the port
+    family: str                  # dense (serves, trains) | ssm (rwkv6, trains)
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,6 +30,8 @@ class ArchConfig:
     qk_norm: bool = False
     mlp_kind: str = "swiglu"
     rope_theta: float = 10_000.0
+    # RWKV (family "ssm")
+    rwkv_head_dim: int = 64
     # Numerics / memory.  Serving stores params in ``compute_dtype`` (the
     # reference keeps f32 and casts per use: the same bits, half the
     # memory); training keeps ``param_dtype`` masters and casts them once

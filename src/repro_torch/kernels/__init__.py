@@ -7,8 +7,10 @@ all at once (``_build.build_all(SOURCES)``) before first use.
 
 from repro_torch.kernels.flash_attention.kernel import SOURCES as _FLASH
 from repro_torch.kernels.paged_attention.kernel import SOURCES as _PAGED
+from repro_torch.kernels.rwkv6_wkv.kernel import SOURCES as _WKV
 
 SOURCES = {
     "paged_attention": _PAGED,
     "flash_attention": _FLASH,
+    "rwkv6_wkv": _WKV,
 }

@@ -34,6 +34,14 @@
 // past S_kv are zero-filled, and their scores masked, so ragged edges
 // need no padding of the inputs.
 //
+// Head widths: any dh from 1 to 256.  The kernel is compiled for the
+// widths D in {32, 64, 128, 192, 256} and takes the smallest D >= dh;
+// columns dh .. D - 1 of every staged tile are zero, so they add nothing
+// to a score, and the output columns past dh are not written.  Rows
+// whose bytes are a multiple of 16 (with 16-byte aligned operands) are
+// staged with 16-byte loads; any other row (20 bf16 values are 40 B)
+// with one scalar load per element.
+//
 // Work split: 128 threads as 16 x 8; thread (ty, tx) owns query rows
 // 4 ty .. 4 ty + 3, score columns tx + 8 c (c < 8) and output columns
 // 4 tx + 32 g .. + 3 (g < D / 32).  Tile rows are padded to D + 4 floats
@@ -41,8 +49,13 @@
 // distinct banks.  A row's max and sum are reduced across the eight tx
 // lanes that share it with shuffles.  Launch bounds ask for three blocks
 // per SM at D = 64 (168 registers, no spills; four blocks cap a thread at
-// 128 registers, which spills and ran 4% slower) and two at D = 128.
-//
+// 128 registers, which spills and ran 4% slower) and two at every other
+// width, which with 128 threads leaves a thread all 255 registers.  At
+// D = 128 two blocks fit in shared memory (84 KB each); at D = 192 and
+// 256 one (118 KB and 151 KB of the SM's 227 KB), and a thread holds
+// 4 x D / 8 accumulators: the build log prints every instance's ptxas
+// register and spill lines.
+
 // Bound: the operations.  At smollm-360m's training shape (B=8, S=4096,
 // H=15, Hkv=5, D=64, causal) the attention is 2 B H S^2 D = 2.6e11 FLOP
 // against 989 TFLOP/s of dense bf16 tensor-core math (0.26 ms), while
@@ -113,18 +126,39 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage kBQ (= kBK) rows of D elements into dst (row stride D + 4
+template <typename T> __device__ __forceinline__ float to_f32(T x);
+template <> __device__ __forceinline__ float to_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
+    __nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Stage kBQ (= kBK) rows of dh elements into dst (row stride D + 4
 // floats) as f32; source row t is at src + t * stride.  Rows at or past
-// n_rows are zero-filled.  Each thread issues up to kLoads 16-byte loads
-// before it converts and stores any, so their latencies overlap.
+// n_rows and columns at or past dh are zero-filled.  With ``vec`` (dh *
+// sizeof(T) a multiple of 16, operands 16-byte aligned) each thread
+// issues up to kLoads 16-byte loads before it converts and stores any,
+// so their latencies overlap; otherwise it loads one element at a time.
 template <typename T, int D>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      size_t stride, int n_rows) {
+                                      size_t stride, int n_rows, int dh,
+                                      bool vec) {
+  constexpr int LD = D + 4;
+  if (!vec) {
+#pragma unroll 8
+    for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
+      const int t = i / D;
+      const int c = i - t * D;
+      dst[t * LD + c] =
+          t < n_rows && c < dh ? to_f32<T>(src[t * stride + c]) : 0.f;
+    }
+    return;
+  }
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = D / kVec;
   constexpr int kN = kBK * kPerRow;
-  static_assert(kN % (kThreads * kLoads) == 0 || kN < kThreads * kLoads,
-                "tile loads must split evenly");
 #pragma unroll
   for (int base = 0; base < kN; base += kThreads * kLoads) {
     uint4 regs[kLoads];
@@ -132,17 +166,17 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     for (int u = 0; u < kLoads; ++u) {
       const int i = base + u * kThreads + threadIdx.x;
       const int t = i / kPerRow;
+      const int c = (i - t * kPerRow) * kVec;
       regs[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < kN && t < n_rows)
-        regs[u] = *reinterpret_cast<const uint4*>(
-            src + t * stride + (i - t * kPerRow) * kVec);
+      if (i < kN && t < n_rows && c < dh)
+        regs[u] = *reinterpret_cast<const uint4*>(src + t * stride + c);
     }
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int i = base + u * kThreads + threadIdx.x;
       const int t = i / kPerRow;
       if (i < kN)
-        unpack<T>(regs[u], dst + t * (D + 4) + (i - t * kPerRow) * kVec);
+        unpack<T>(regs[u], dst + t * LD + (i - t * kPerRow) * kVec);
     }
   }
 }
@@ -151,7 +185,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int S,
-                     int Skv, int H, int Hkv, int causal, float scale) {
+                     int Skv, int H, int Hkv, int dh, int vec, float scale,
+                     int causal) {
   constexpr int LD = D + 4;      // row stride of the q and K/V tiles
   constexpr int PLD = kBK + 4;   // row stride of P
   constexpr int DG = D / 32;     // float4 output groups per thread
@@ -169,17 +204,17 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   const int tid = threadIdx.x;
   const int tx = tid & 7;
   const int ty = tid >> 3;
-  const size_t q_stride = static_cast<size_t>(H) * D;
-  const size_t kv_stride = static_cast<size_t>(Hkv) * D;
+  const size_t q_stride = static_cast<size_t>(H) * dh;
+  const size_t kv_stride = static_cast<size_t>(Hkv) * dh;
   const T* kb = k + static_cast<size_t>(b) * Skv * kv_stride +
-                static_cast<size_t>(hk) * D;
+                static_cast<size_t>(hk) * dh;
   const T* vb = v + static_cast<size_t>(b) * Skv * kv_stride +
-                static_cast<size_t>(hk) * D;
+                static_cast<size_t>(hk) * dh;
 
   stage<T, D>(q_s,
-              q + (static_cast<size_t>(b) * S + q0) * q_stride +
-                  static_cast<size_t>(h) * D,
-              q_stride, min(kBQ, S - q0));
+               q + (static_cast<size_t>(b) * S + q0) * q_stride +
+                   static_cast<size_t>(h) * dh,
+               q_stride, min(kBQ, S - q0), dh, vec);
 
   float m[kRows], l[kRows], acc[kRows][4 * DG];
 #pragma unroll
@@ -198,7 +233,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     const int n_valid = min(kBK, Skv - k0);
     __syncthreads();   // the previous tile's P @ V is done with kv_s, p_s
-    stage<T, D>(kv_s, kb + k0 * kv_stride, kv_stride, n_valid);
+    stage<T, D>(kv_s, kb + k0 * kv_stride, kv_stride, n_valid, dh,
+                 vec);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -258,7 +294,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
       for (int e = 0; e < 4 * DG; ++e) acc[r][e] *= alpha;
     }
     __syncthreads();   // every thread is done with K; P is written
-    stage<T, D>(kv_s, vb + k0 * kv_stride, kv_stride, n_valid);
+    stage<T, D>(kv_s, vb + k0 * kv_stride, kv_stride, n_valid, dh,
+                 vec);
     __syncthreads();
 
 #pragma unroll 2
@@ -292,19 +329,20 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
     if (row >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
     T* o = out + (static_cast<size_t>(b) * S + row) * q_stride +
-           static_cast<size_t>(h) * D;
+           static_cast<size_t>(h) * dh;
 #pragma unroll
     for (int g = 0; g < DG; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        o[4 * tx + 32 * g + e] = from_f32<T>(acc[r][4 * g + e] / denom);
+        if (4 * tx + 32 * g + e < dh)
+          o[4 * tx + 32 * g + e] = from_f32<T>(acc[r][4 * g + e] / denom);
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int Skv, int H, int Hkv, int causal, float scale,
-           cudaStream_t stream) {
+           int S, int Skv, int H, int Hkv, int dh, int vec, int causal,
+           float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kBQ * (D + 4) + kBK * (D + 4) + kBQ * (kBK + 4));
   cudaError_t err = cudaFuncSetAttribute(
@@ -314,36 +352,48 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Skv, H, Hkv,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), S, Skv, H, Hkv, dh,
+      vec, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_width(const void* q, const void* k, const void* v, void* out,
+                 int B, int S, int Skv, int H, int Hkv, int dh, int causal,
+                 float scale, cudaStream_t s) {
+  const int vec = (dh * sizeof(T)) % 16 == 0 &&
+                  reinterpret_cast<size_t>(q) % 16 == 0 &&
+                  reinterpret_cast<size_t>(k) % 16 == 0 &&
+                  reinterpret_cast<size_t>(v) % 16 == 0;
+#define FLASH_WIDTH(W)                                                  \
+  if (dh <= W)                                                          \
+    return launch<T, W>(q, k, v, out, B, S, Skv, H, Hkv, dh, vec, causal, \
+                        scale, s);
+  FLASH_WIDTH(32)
+  FLASH_WIDTH(64)
+  FLASH_WIDTH(128)
+  FLASH_WIDTH(192)
+  FLASH_WIDTH(256)
+#undef FLASH_WIDTH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  ``bf16`` selects bf16 (1) or
-// f32 (0) for q, k, v and out; D must be 64 or 128.  Returns
+// f32 (0) for q, k, v and out; 1 <= dh <= 256.  Returns
 // cudaGetLastError() after the launch: 0 on success.
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* out, int B,
-                                       int S, int Skv, int H, int Hkv, int D,
+                                       int S, int Skv, int H, int Hkv, int dh,
                                        int causal, int bf16, float scale,
                                        void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || Skv < S ||
-      reinterpret_cast<size_t>(q) % 16 || reinterpret_cast<size_t>(k) % 16 ||
-      reinterpret_cast<size_t>(v) % 16)
+  if (Hkv <= 0 || H % Hkv != 0 || Skv < S || dh < 1 || dh > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, B, S, Skv, H, Hkv,
-                                            causal, scale, s)
-                : launch<float, 64>(q, k, v, out, B, S, Skv, H, Hkv, causal,
-                                    scale, s);
-  if (D == 128)
-    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, out, B, S, Skv, H, Hkv,
-                                             causal, scale, s)
-                : launch<float, 128>(q, k, v, out, B, S, Skv, H, Hkv, causal,
-                                     scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? launch_width<__nv_bfloat16>(q, k, v, out, B, S, Skv, H, Hkv,
+                                            dh, causal, scale, s)
+              : launch_width<float>(q, k, v, out, B, S, Skv, H, Hkv, dh,
+                                    causal, scale, s);
 }

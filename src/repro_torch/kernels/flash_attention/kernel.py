@@ -35,8 +35,8 @@ def _entry():
 
 def launch(q, k, v, out, *, causal: bool, scale: float) -> None:
     """B3 on the current stream: q and out (B, S, H, D), k and v
-    (B, S_kv, Hkv, D).  The caller has validated device, dtypes, shapes,
-    alignment and contiguity and allocated ``out``.  Raises if the
+    (B, S_kv, Hkv, D).  The caller has validated device, dtypes, shapes
+    and contiguity and allocated ``out``.  Raises if the
     launch was refused."""
     B, S, H, D = q.shape
     S_kv, Hkv = k.shape[1], k.shape[2]

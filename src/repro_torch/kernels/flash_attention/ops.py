@@ -24,9 +24,10 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
-# Head widths the kernel is compiled for, and CUDA's grid-y limit (one
-# row of blocks per batch x query head).
-_KERNEL_HEAD_DIMS = (64, 128)
+# The widest head the kernel is compiled for (it pads any narrower one
+# to its next instance), and CUDA's grid-y limit (one row of blocks per
+# batch x query head).
+_MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65_535
 
 
@@ -61,15 +62,13 @@ def _forward(q, k, v, causal: bool):
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
     B, S, H, D = q.shape
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash-attention kernel takes head_dim "
-                         f"{_KERNEL_HEAD_DIMS}, got q {tuple(q.shape)}")
+    if D > _MAX_HEAD_DIM:
+        raise ValueError(f"the flash-attention kernel takes head_dim up to "
+                         f"{_MAX_HEAD_DIM}, got q {tuple(q.shape)}")
     if B * H > _MAX_GRID_Y:
         raise ValueError(f"B * H = {B * H} exceeds the kernel grid's "
                          f"{_MAX_GRID_Y} (q {tuple(q.shape)})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on 16-byte boundaries")
     out = torch.empty_like(q)
     kernel.launch(q, k, v, out, causal=causal, scale=1.0 / D ** 0.5)
     flash_attention.launches += 1
@@ -135,8 +134,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     number of query rows the backward recomputes at a time (a memory
     cap; it does not change the result beyond summation order).
 
-    On CUDA tensors the kernel takes head_dim 64 or 128 and raises on any
-    other; on CPU tensors the plain version runs.  Differentiable in q,
+    On CUDA tensors the kernel takes any head_dim up to 256 and raises
+    above; on CPU tensors the plain version runs.  Differentiable in q,
     k and v.
     """
     _check(q, k, v)

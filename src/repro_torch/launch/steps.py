@@ -5,7 +5,11 @@ of ``repro/launch/steps.py`` for one device — no mesh, no sharder).
 initialisers and ``train_step(params, opt, batch) -> (params, opt,
 metrics)``: the loss and its gradients (accumulated over ``microbatch``
 slices of the batch in an f32 accumulator when ``cfg.microbatch > 1``),
-then ``adamw.update``.
+then ``adamw.update``.  The step updates ``params`` and ``opt`` in place
+and returns them: the reference's jitted step donates both
+(``donate_argnums=(0, 1)``), and a second copy of them does not fit one
+card for rwkv6-3b.  A caller that needs its inputs afterwards passes
+copies, as the reference's own tests do.
 """
 
 from __future__ import annotations

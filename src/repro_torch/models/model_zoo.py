@@ -2,10 +2,12 @@
 (port of ``repro/models/model_zoo.py``).
 
 ``get_model(cfg, device=None)`` returns a ``ModelAPI`` whose functions
-close over the arch config and the device (``None`` = CUDA).  Only the
-dense family is ported; it has the training loss and every serving hook:
-decode, chunked prefill and speculative verify, each dense and paged.
-``input_specs``/``make_batch`` give a training cell's batch.
+close over the arch config and the device (``None`` = CUDA).  Two
+families are ported.  The dense family has the training loss and every
+serving hook: decode, chunked prefill and speculative verify, each dense
+and paged.  The ssm family (rwkv6) has the training loss; its serving
+hooks raise, naming ROADMAP A11 (rest).  ``input_specs``/``make_batch``
+give a training cell's batch.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rwkv_lm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,12 +55,22 @@ class ModelAPI:
     paged_verify_step: Callable = None
 
 
+def _serving_not_ported(cfg: ArchConfig, hook: str):
+    def raise_(*args, **kwargs):
+        raise NotImplementedError(
+            f"{cfg.name}: {hook} of the {cfg.family!r} family is not "
+            f"ported yet (ROADMAP A11, rest)")
+    return raise_
+
+
 def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
+    if cfg.family == "ssm":
+        return _rwkv_model(cfg, resolve_device(device))
     if cfg.family != "dense" or cfg.n_experts:
         raise NotImplementedError(
             f"family {cfg.family!r} (n_experts {cfg.n_experts}) is not "
-            f"ported yet; repro_torch serves the dense family (ROADMAP "
-            f"A11-A12)")
+            f"ported yet; repro_torch runs the dense and ssm families "
+            f"(ROADMAP A11-A12)")
     dev = resolve_device(device)
     mod = transformer
     return ModelAPI(
@@ -89,6 +101,21 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
         kv_dtype="bf16": mod.paged_verify_step(
             cfg, params, pool, tables, tokens, start, kv_dtype=kv_dtype),
     )
+
+
+def _rwkv_model(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
+    """rwkv6: the training loss only; every serving hook raises."""
+    hooks = ("decode_step", "cache_spec", "init_cache", "cache_axes",
+             "paged_decode_step", "prefill_step", "paged_prefill_step",
+             "verify_step", "paged_verify_step")
+    return ModelAPI(
+        cfg=cfg,
+        device=dev,
+        init=lambda generator, dtype=None: rwkv_lm.init(cfg, generator, dev,
+                                                        dtype),
+        defs=lambda: rwkv_lm.model_defs(cfg),
+        loss=lambda params, batch: rwkv_lm.lm_loss(cfg, params, batch),
+        **{h: _serving_not_ported(cfg, h) for h in hooks})
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,13 @@
 """AdamW + schedule + clipping (port of ``repro/optim/adamw.py``).
 
-Functional, as the reference: ``update`` returns new param and state
-trees and leaves its inputs untouched.  Every leaf's math runs in
-float32; moments are stored in ``moment_dtype``.  Trees are nested dicts
+``update`` writes the new values into the params, moments and
+gradients it is given, leaf by leaf, with the reference's arithmetic in
+its order: the counterpart of the reference's train step, whose ``jit``
+donates params and optimizer state.  A functional update would hold a
+second copy of params and moments while the first is alive (37 GB for
+rwkv6-3b's 3.1e9 float32 params, which then does not fit one 80 GB
+card); this one holds a few temporaries of one leaf.  Every leaf's math
+runs in float32; moments are stored in ``moment_dtype``.  Trees are nested dicts
 walked in sorted-key order, the reference's pytree order, so the global
 norm sums its per-leaf terms in the same order.
 """
@@ -61,36 +66,35 @@ def global_norm(tree):
     return torch.sqrt(torch.sum(torch.stack(terms)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return map_tree(lambda g: (g * scale).to(g.dtype), tree), norm
-
-
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state, params):
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    """One AdamW step, written into ``params``, ``state``'s moments and
+    ``grads`` (clipped) one leaf at a time.  Returns (params, new_state,
+    metrics): the same param and moment tensors, a new step count."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1.0 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1.0 - torch.pow(b2, step.to(torch.float32))
-    mdt = _DTYPES[cfg.moment_dtype]
 
     def upd(p, g, mu, nu):
+        g.mul_(scale)
         g32 = g.to(torch.float32)
-        mu32 = mu.to(torch.float32) * b1 + (1 - b1) * g32
-        nu32 = nu.to(torch.float32) * b2 + (1 - b2) * g32 * g32
-        mhat = mu32 / bc1
-        nhat = nu32 / bc2
+        mu32 = mu.to(torch.float32).mul_(b1).add_((1 - b1) * g32)
+        nu32 = nu.to(torch.float32).mul_(b2).add_(
+            ((1 - b2) * g32).mul_(g32))
         p32 = p.to(torch.float32)
-        step_ = mhat / (torch.sqrt(nhat) + cfg.eps) + cfg.weight_decay * p32
-        return ((p32 - lr * step_).to(p.dtype), mu32.to(mdt),
-                nu32.to(mdt))
+        denom = (nu32 / bc2).sqrt_().add_(cfg.eps)
+        step_ = (mu32 / bc1).div_(denom)
+        del denom
+        step_.add_(cfg.weight_decay * p32).mul_(lr)
+        p32.sub_(step_)
+        for dst, src in ((p, p32), (mu, mu32), (nu, nu32)):
+            if dst is not src:
+                dst.copy_(src)
 
-    out = map_tree(upd, params, grads, state["mu"], state["nu"])
-    new_p, new_mu, new_nu = (map_tree(lambda t, i=i: t[i], out)
-                             for i in range(3))
-    return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, \
+    map_tree(upd, params, grads, state["mu"], state["nu"])
+    return params, {"mu": state["mu"], "nu": state["nu"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

@@ -1,6 +1,6 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (B1 decode, B2
-multi-query, B3 flash attention) against their plain PyTorch versions on
-the card.  They carry the ``cuda`` marker and
+multi-query, B3 flash attention, B4 RWKV-6 WKV) against their plain
+PyTorch versions on the card.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -147,10 +147,121 @@ def test_flash_attention_kernel_matches_plain(dims, causal, dtype):
 
 @pytest.mark.cuda
 def test_flash_attention_kernel_rejects_other_head_dims():
+    """Every head_dim up to 256 runs (16 and 20 are the smoke configs',
+    20 bf16 values a 40-byte row that takes the scalar loads, 192
+    nemotron-4-340b's), held to the plain version as above; 257 raises
+    naming the limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    q, k, v = _flash_case(1, 16, 16, 2, 1, 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for D in (16, 20, 192):
+        for dtype, rtol in ((torch.bfloat16, 1.6e-2), (torch.float32, 1e-5)):
+            q, k, v = _flash_case(2, 200, 200, 4, 2, D, dtype=dtype)
+            got = fops.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v).float()
+            err = (got.float() - want).abs()
+            row = want.abs().amax(dim=-1, keepdim=True)
+            assert (err <= rtol * row).all(), (D, dtype, float(err.max()))
+    q, k, v = _flash_case(1, 16, 16, 2, 1, 257, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
         fops.flash_attention(q, k, v)
+
+
+def _wkv_case(B, S, H, N, *, dtype, state, seed=3):
+    """Inputs as the model makes them: r, k, v (B, S, H, N) and the
+    log-decay lw in [-0.35, 0]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s, sc=0.5: (torch.randn(s, generator=g, device="cuda")
+                             * sc).to(dtype)
+    lw = -(torch.rand((B, S, H, N), generator=g, device="cuda")
+           * 0.35).to(dtype)
+    s0 = (torch.randn((B, H, N, N), generator=g, device="cuda") * 0.2
+          if state else None)
+    return mk(B, S, H, N), mk(B, S, H, N), mk(B, S, H, N), lw, \
+        mk(H, N, sc=0.1), s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [
+    (1, 1024, 40, 64, 128),     # rwkv6-3b's heads
+    (2, 64, 4, 16, 64),         # smoke width
+    (2, 96, 3, 16, 48),         # Q = 48
+    (2, 64, 2, 8, 16),          # N = 8
+    (1, 256, 2, 128, 128),      # the widest N, 16 value columns a block
+    (1, 60, 2, 10, 30),         # N, Q not multiples of 4
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("state", [False, True])
+def test_wkv_kernel_matches_plain(dims, dtype, state):
+    """B4 against ``wkv_chunked_ref``: both compute in f32, so y in f32
+    and the f32 state within 2e-5 of their largest magnitude; bf16 y
+    within one bf16 ulp of each element plus 2e-5 of the scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
+
+    B, S, H, N, Q = dims
+    r, k, v, lw, u, s0 = _wkv_case(B, S, H, N, dtype=dtype, state=state)
+    before = wops.wkv.launches
+    y, sf = wops.wkv(r, k, v, lw, u, init_state=s0, chunk=Q)
+    torch.cuda.synchronize()
+    assert wops.wkv.launches == before + 1
+    wy, ws = wkv_chunked_ref(r, k, v, lw, u, init_state=s0, chunk=Q)
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(sf).all()
+    es = (sf - ws).abs().max()
+    assert es <= 2e-5 * ws.abs().max(), float(es)
+    ey = (y.float() - wy.float()).abs()
+    scale = wy.float().abs().max()
+    if dtype == torch.float32:
+        assert ey.max() <= 2e-5 * scale, float(ey.max())
+    else:
+        assert (ey <= 2.0 ** -7 * wy.float().abs() + 2e-5 * scale).all(), \
+            float(ey.max())
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_reads_strided_operands():
+    """r, k, v and lw as views with other strides than (B, S, H, N)
+    contiguous: the kernel reads them through their strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
+
+    r, k, v, lw, u, s0 = _wkv_case(2, 128, 8, 32, dtype=torch.float32,
+                                   state=True)
+    wide = torch.cat([r, k], dim=2)          # (B, S, 2H, N)
+    rv, kv = wide[:, :, :8], wide[:, :, 8:]
+    vt = v.transpose(0, 1).contiguous().transpose(0, 1)
+    y, sf = wops.wkv(rv, kv, vt, lw, u, init_state=s0, chunk=64)
+    wy, ws = wkv_chunked_ref(r, k, v, lw, u, init_state=s0, chunk=64)
+    assert (y - wy).abs().max() <= 2e-5 * wy.abs().max()
+    assert (sf - ws).abs().max() <= 2e-5 * ws.abs().max()
+
+
+@pytest.mark.cuda
+def test_wkv_function_gradients_match_autograd_through_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
+
+    ins = [t.requires_grad_() for t in _wkv_case(
+        2, 128, 4, 16, dtype=torch.float32, state=True)]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    wy = torch.randn(ins[0].shape, generator=g, device="cuda")
+    grads = {}
+    for name, fn in (("function", wops.wkv), ("plain", wkv_chunked_ref)):
+        y, sf = fn(*ins[:5], init_state=ins[5], chunk=64)
+        ((y * wy).sum() + sf.sum()).backward()
+        grads[name] = [t.grad.clone() for t in ins]
+        for t in ins:
+            t.grad = None
+    for got, want in zip(grads["function"], grads["plain"]):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -53,7 +53,7 @@ from repro_torch.models.bridge import opt_state_from_jax, params_from_jax
 from repro_torch.optim import adamw
 from repro_torch.runtime import (FaultInjector, Heartbeat, ResilientRunner,
                                  StepFailure)
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, map_tree
 
 _CACHE = {}
 
@@ -268,7 +268,9 @@ def test_build_train_microbatch_matches_jax_train_step():
                              adamw_cfg=adamw.AdamWConfig(**kw),
                              device="cpu")
     topt = opt_state_from_jax(jax.tree.map(np.asarray, jopt), device="cpu")
-    tp2, to2, tmet = tart.step_fn(tp, topt,
+    # The step updates its params and state in place (the reference's
+    # jit donates them): hand it a copy of the shared params.
+    tp2, to2, tmet = tart.step_fn(map_tree(torch.clone, tp), topt,
                                   {k: torch.tensor(v) for k, v in b.items()})
     for name in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose(float(tmet[name]), float(jmet[name]),
