@@ -49,6 +49,17 @@ Phases (any failure raises, and the script exits non-zero):
               version; device times of the kernel and the plain version
               (no PyTorch call computes the recurrence, so no library
               time), the wrapper's host time, and the bound;
+     3e.    — B5, the Mamba-2 SSD kernel, against its plain version
+              (``ssd_chunked_ref``) at mamba2-2.7b's training shape (B=4,
+              S=4096, H=80, P=64, N=128, chunk 256) and at edges (the
+              smoke width P=32, N=16 with chunk 128; P=8, N=8 with chunk 8
+              and S=40; a strong decay whose cumsum passes -100 inside a
+              chunk), each in bf16 and f32, with and without an initial
+              state; its autograd Function's gradients against autograd
+              through the plain version; device times of the kernel, the
+              plain version and the Function's forward and backward (no
+              PyTorch call computes the scan, so no library time), the
+              wrapper's host time, and the bound;
   4. ladder — smoke-width qwen3-8b on the card at O2, O4, O5, O6-gather,
               O6-kernel, with chunked prefill (chunks 3 and 8) on O5,
               O6-gather and O6-kernel, and at O7 with the smollm-360m
@@ -88,9 +99,10 @@ Phases (any failure raises, and the script exits non-zero):
               asserted); step 0's loss and grad_norm computed once with
               B3 and once with the plain attention in its place;
      6b.    — ``train()`` on the smoke configs of qwen3-8b (head_dim 16),
-              smollm-360m (head_dim 20) and rwkv6-3b (N=16), 3 steps at
-              batch 8 x 128 on the card and on the CPU: the losses held
-              together, B3 / B4 launches counted;
+              smollm-360m (head_dim 20), rwkv6-3b (N=16) and mamba2-2.7b
+              (P=32, N=16), 3 steps at batch 8 x 128 on the card and on
+              the CPU: the losses held together, B3 / B4 / B5 launches
+              counted;
   7. rwkv   — rwkv6-3b at its published widths (32 layers, d_model 2560,
               40 heads of 64, d_ff 8960, vocab 65,536), f32 masters, bf16
               compute, remat full, trained 5 steps through ``train()`` on
@@ -99,7 +111,17 @@ Phases (any failure raises, and the script exits non-zero):
               time, tokens/s, peak memory and B4's launches (32 forward +
               32 remat recompute a step, asserted); step 0 with B4 and
               with its plain version in its place at 32 and 2 layers; a
-              ``torch.profiler`` reading of one step.
+              ``torch.profiler`` reading of one step;
+  8. mamba  — mamba2-2.7b at its published widths (64 layers, d_model
+              2560, 80 heads of 64, state 128, expand 2, conv 4, vocab
+              50,288), f32 masters, bf16 compute, remat full, trained 5
+              steps through ``train()`` on the synthetic stream from seed
+              0 at seq 4096, global batch 4 (train_4k's 256 cut to 4):
+              per-step loss, grad_norm, wall time, tokens/s, peak memory
+              and B5's launches (64 forward + 64 remat recompute a step,
+              asserted); step 0 with B5 and with its plain version in its
+              place at 64 and 2 layers; a ``torch.profiler`` reading of
+              one step.
 
 Prints the card line and a JSON object of kernel numbers on lines before
 the last, writes the detailed numbers to ``chiprun_out/chip_smoke.json``,
@@ -160,11 +182,17 @@ TRAIN_TOL = {32: {"loss": 1e-3, "grad_norm_factor": 10.0},
 B4_SOURCE = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
 B4_REPLACES = "src/repro/kernels/rwkv6_wkv/kernel.py:73"
 # |kernel - plain| <= WKV_TOL * (the largest |plain|) for y and for the
-# f32 state: both sides compute in f32 and differ only in summation
-# order; bf16 y may also round one bf16 ulp of itself the other way.
+# f32 state, for B4 and for B5: both sides compute in f32 and differ only
+# in summation order (B5 and its plain version sum the same cums, so
+# their decays round alike); bf16 y may also round one bf16 ulp of
+# itself the other way.
 WKV_TOL = 2e-5
 # Phase 7's global batch (train_4k's 256 cut to one card; PERF.md §4).
 RWKV_BATCH = 4
+B5_SOURCE = "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu"
+B5_REPLACES = "src/repro/kernels/mamba2_ssd/kernel.py:66"
+# Phase 8's global batch (train_4k's 256 cut to one card; PERF.md §4).
+MAMBA_BATCH = 4
 # Phase 6b: each smoke loss on the card within this of the CPU's
 # (relative).  Both run bf16 compute from the same weights and batches;
 # they differ in the GEMMs' summation order and in B3/B4 against their
@@ -175,6 +203,11 @@ SMOKE_TRAIN_TOL = 5e-3
 # are 2-D, so the initialiser's fan-in is right (unlike smollm's, C8);
 # grad_norm is held at 2 layers and read at 32.
 RWKV_TRAIN_TOL = {32: {"loss": 1e-3}, 2: {"loss": 1e-3, "grad_norm": 1e-2}}
+# Phase 8: step 0 with B5 against its plain version (relative).  Both
+# compute the scan in f32 and round y once to bf16; mamba2's projections
+# are 2-D (C8 does not apply), so grad_norm is held at both depths.
+MAMBA_TRAIN_TOL = {64: {"loss": 1e-3, "grad_norm": 1e-2},
+                   2: {"loss": 1e-3, "grad_norm": 1e-2}}
 
 
 def log(msg: str) -> None:
@@ -761,18 +794,14 @@ def wkv_case(B, S, H, N, *, dtype, state: bool, seed: int):
             mk(H, N, sc=0.1), s0)
 
 
-def check_wkv(name, case, Q, kind) -> float:
-    """B4 vs ``wkv_chunked_ref`` on one case (WKV_TOL); max |y
-    difference|."""
+def scan_held_to_plain(label: str, got, want, kind: str) -> float:
+    """A chunked scan's (y, f32 final state) from its kernel against its
+    plain version's, held to WKV_TOL; max |y difference|."""
     import torch
-    from repro_torch.kernels.rwkv6_wkv import ops, ref
 
-    r, k, v, lw, u, s0 = case
-    y, sf = ops.wkv(r, k, v, lw, u, init_state=s0, chunk=Q)
-    torch.cuda.synchronize()
-    wy, ws = ref.wkv_chunked_ref(r, k, v, lw, u, init_state=s0, chunk=Q)
+    (y, sf), (wy, ws) = got, want
     if not (torch.isfinite(y).all() and torch.isfinite(sf).all()):
-        raise AssertionError(f"B4 {name} {kind}: non-finite output")
+        raise AssertionError(f"{label} {kind}: non-finite output")
     wy = wy.float()
     ey = (y.float() - wy).abs()
     scale = wy.abs().max()
@@ -782,14 +811,27 @@ def check_wkv(name, case, Q, kind) -> float:
                                     else 0.0)
     if bad_y.any() or not es <= WKV_TOL:
         raise AssertionError(
-            f"B4 {name} {kind}: {int(bad_y.sum())} y elements beyond "
+            f"{label} {kind}: {int(bad_y.sum())} y elements beyond "
             f"tolerance (max err {float(ey.max())}), state off by {es:.3e} "
             f"of its scale")
-    log(f"[kernel] B4 {name} {kind}: max |y kernel - plain| = "
+    log(f"[kernel] {label} {kind}: max |y kernel - plain| = "
         f"{float(ey.max()):.3e} ({rel_y:.3e} of the largest |y|), state "
         f"{es:.3e} of its largest |S| (tolerance {WKV_TOL} of the scale"
         f"{', plus one bf16 ulp of each y' if kind == 'bf16' else ''})")
     return float(ey.max())
+
+
+def check_wkv(name, case, Q, kind) -> float:
+    """B4 vs ``wkv_chunked_ref`` on one case; max |y difference|."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import ops, ref
+
+    r, k, v, lw, u, s0 = case
+    got = ops.wkv(r, k, v, lw, u, init_state=s0, chunk=Q)
+    torch.cuda.synchronize()
+    return scan_held_to_plain(
+        f"B4 {name}", got,
+        ref.wkv_chunked_ref(r, k, v, lw, u, init_state=s0, chunk=Q), kind)
 
 
 def phase_wkv_kernel() -> dict:
@@ -886,6 +928,157 @@ def phase_wkv_kernel() -> dict:
         f"and backward (recomputed through the plain version) "
         f"{res['function_fwd_bwd_ms']:.4f} ms")
     del r, k, v, lw, u
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: B5 against its plain version
+# ---------------------------------------------------------------------------
+
+def ssd_case(B, S, H, P, N, *, dtype, state: bool, seed: int,
+             strong: bool = False):
+    """x (B, S, H, P), dt (B, S, H) after softplus (4 dt + 1 under
+    ``strong``), A (H,) negative, Bs, Cs (B, S, N) and an f32 state or
+    None, as the model makes them."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: (torch.randn(s, generator=g, device="cuda")
+                     * 0.5).to(dtype)
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device="cuda"))
+    if strong:
+        dt = 4 * dt + 1
+    A = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.3)
+    s0 = (torch.randn((B, H, P, N), generator=g, device="cuda") * 0.2
+          if state else None)
+    return (mk(B, S, H, P), dt.to(dtype), A.to(dtype), mk(B, S, N),
+            mk(B, S, N), s0)
+
+
+def check_ssd(name, case, Q, kind) -> float:
+    """B5 vs ``ssd_chunked_ref`` on one case; max |y difference|."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ops, ref
+
+    *ins, s0 = case
+    got = ops.ssd(*ins, init_state=s0, chunk=Q)
+    torch.cuda.synchronize()
+    return scan_held_to_plain(
+        f"B5 {name}", got,
+        ref.ssd_chunked_ref(*ins, init_state=s0, chunk=Q), kind)
+
+
+def phase_ssd_kernel() -> dict:
+    """Phase 3e: B5 against its plain version at mamba2-2.7b's training
+    shape (B = phase 8's batch, S=4096, H=80, P=64, N=128, chunk 256) in
+    bf16 and f32, with and without a state, and at edges (the smoke
+    width with chunk 128, P=8 N=8 with chunk 8 and S=40, a strong
+    decay); the Function's gradients against autograd through the plain
+    version; times at the training shape."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ops, ref
+
+    B = MAMBA_BATCH
+    main = (B, 4096, 80, 64, 128)
+    cases = [
+        (f"mamba2-2.7b training shape B={B} S=4096 H=80 P=64 N=128 Q=256",
+         main, 256, False),
+        ("smoke width B=8 S=128 H=4 P=32 N=16 Q=128", (8, 128, 4, 32, 16),
+         128, False),
+        ("P=8 N=8 B=2 S=40 H=2 Q=8", (2, 40, 2, 8, 8), 8, False),
+        ("strong decay (4 dt + 1) B=2 S=1024 H=8 P=64 N=128 Q=256",
+         (2, 1024, 8, 64, 128), 256, True),
+    ]
+    errs = {}
+    for i, (name, dims, Q, strong) in enumerate(cases):
+        for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for state in (False, True):
+                case = ssd_case(*dims, dtype=dt, state=state, seed=80 + i,
+                                strong=strong)
+                if strong and not state and kind == "f32":
+                    cum = torch.cumsum((case[1] * case[2]).reshape(
+                        dims[0], -1, Q, dims[2]), dim=2)
+                    log(f"[kernel] B5 {name}: the cumsum of dt A reaches "
+                        f"{float(cum.min()):.1f} inside a chunk")
+                    if not cum.min() < -100:
+                        raise AssertionError("the strong decay is not strong")
+                label = f"{name}{' s0' if state else ''}"
+                errs[f"{label} {kind}"] = check_ssd(label, case, Q, kind)
+                del case
+    torch.cuda.empty_cache()
+
+    # The Function: kernel forward, gradients recomputed through the
+    # plain version; against autograd through the plain version.
+    ins = [t.requires_grad_() for t in ssd_case(
+        2, 512, 8, 64, 128, dtype=torch.float32, state=True, seed=90)]
+    w = torch.randn(ins[0].shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(91))
+    grad_err = grad_errors(
+        "B5 Function gradients (B=2, S=512, H=8, P=64, N=128, s0)",
+        lambda: ops.ssd(*ins[:5], init_state=ins[5], chunk=256),
+        lambda: ref.ssd_chunked_ref(*ins[:5], init_state=ins[5], chunk=256),
+        ins, w, ("x", "dt", "A", "Bs", "Cs", "s0"))
+    del ins, w
+    torch.cuda.empty_cache()
+
+    Bm, S, H, P, N = main
+    Q = 256
+    x, dt, A, Bs, Cs, _ = ssd_case(*main, dtype=torch.bfloat16, state=False,
+                                   seed=80)
+    res = {
+        "ms": time_ms(lambda: ops.ssd(x, dt, A, Bs, Cs, chunk=Q)),
+        "wrapper_host_ms": host_ms(lambda: ops.ssd(x, dt, A, Bs, Cs,
+                                                   chunk=Q), reps=20),
+        "plain_ms": time_ms(lambda: ref.ssd_chunked_ref(x, dt, A, Bs, Cs,
+                                                        chunk=Q), reps=10),
+        "library_ms": None,
+    }
+    # Forward and backward of the Function at the same shape: its
+    # backward recomputes through the plain version in f32 under
+    # autograd, once per layer a training step.
+    ins = [t.requires_grad_() for t in (x, dt, A, Bs, Cs)]
+    gy = torch.randn_like(x)
+    res["function_fwd_bwd_ms"] = time_ms(
+        lambda: torch.autograd.grad(ops.ssd(*ins, chunk=Q)[0], ins, gy),
+        reps=5, warmup=1)
+    del ins, gy
+    # Bytes: x, dt, Bs, Cs read once, y and the f32 final state written
+    # once (A is 160 B).  Operations of the chunked form at the model's
+    # chunk: per (b, chunk) C B^T (Q^2 N FMA), and per head the (Q, Q)
+    # block's product with x dt (Q^2 P FMA), the read of the entering
+    # state and the state's update (Q N P FMA each).
+    nbytes = (sum(t.numel() * t.element_size()
+                  for t in (x, dt, A, Bs, Cs, x)) + Bm * H * P * N * 4)
+    flops = 2 * Bm * (S // Q) * (Q * Q * N
+                                 + H * (Q * Q * P + 2 * Q * N * P))
+    bound_ms, bound_by = bound(nbytes, flops)
+    main_key = f"{cases[0][0]} bf16"
+    out = {
+        "name": "mamba2_ssd",
+        "route": "cuda",
+        "source": B5_SOURCE,
+        "replaces": B5_REPLACES,
+        "launches": None,
+        "max_abs_err": errs[main_key],
+        **res,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "shape": main_key,
+        "bytes": nbytes,
+        "flops": flops,
+        "errors": errs,
+        "grad_rel_err": grad_err,
+    }
+    log(f"[kernel] B5 ({out['shape']}): kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, library: none (no PyTorch call "
+        f"computes the SSD scan), bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes} B, {flops} FLOP); the wrapper's host time per call "
+        f"{res['wrapper_host_ms']:.4f} ms; the Function's forward and "
+        f"backward (recomputed through the plain version) "
+        f"{res['function_fwd_bwd_ms']:.4f} ms")
+    del x, dt, A, Bs, Cs
     torch.cuda.empty_cache()
     return out
 
@@ -1566,11 +1759,12 @@ def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
 def _counted():
     """Every kernel wrapper of the port (each counts its launches)."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_ssd import ops as sops
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.rwkv6_wkv import ops as wops
 
     return (pops.paged_attention, pops.paged_prefill_attention,
-            fops.flash_attention, wops.wkv)
+            fops.flash_attention, wops.wkv, sops.ssd)
 
 
 def reset_launches() -> None:
@@ -1579,11 +1773,13 @@ def reset_launches() -> None:
 
 
 def no_training_kernels(run: str) -> None:
-    """Serving never runs the training kernels (B3, B4)."""
+    """Serving never runs the training kernels (B3, B4, B5)."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_ssd import ops as sops
     from repro_torch.kernels.rwkv6_wkv import ops as wops
 
-    for name, fn in (("B3", fops.flash_attention), ("B4", wops.wkv)):
+    for name, fn in (("B3", fops.flash_attention), ("B4", wops.wkv),
+                     ("B5", sops.ssd)):
         if fn.launches:
             raise AssertionError(f"{run}: {name} launched {fn.launches} "
                                  f"times in a serving run")
@@ -1631,6 +1827,8 @@ def _kernel_kind(name: str) -> str:
         return "B3"
     if "wkv_fwd_kernel" in name:
         return "B4"
+    if "ssd_fwd_kernel" in name:
+        return "B5"
     if any(t in low for t in ("gemm", "nvjet", "cutlass")):
         return "GEMM f32" if "f32f32" in low or "sgemm" in low \
             else "GEMM bf16"
@@ -1649,7 +1847,7 @@ def _kernel_kind(name: str) -> str:
 
 def train_full_width(cfg, want: dict, B: int, *, kernel, ops_module, plain,
                      tol: dict, tag: str) -> dict:
-    """Phases 6 and 7: ``cfg`` (checked against ``want``) at its
+    """Phases 6, 7 and 8: ``cfg`` (checked against ``want``) at its
     published widths, f32 masters, bf16 compute, remat full, global batch
     ``B`` at seq 4096.  Step 0's loss and grad_norm computed once with
     the kernel and once with its plain version in its place (patched in
@@ -1825,11 +2023,11 @@ def phase_train() -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_smoke_train() -> dict:
-    """Phase 6b (C9 and B4): ``train()`` on the smoke configs of
-    qwen3-8b (head_dim 16), smollm-360m (head_dim 20) and rwkv6-3b (N =
-    16), 3 steps at the training CLI's smoke shape (batch 8 x 128), on
-    the card and on the CPU from the same weights; the losses held to
-    SMOKE_TRAIN_TOL."""
+    """Phase 6b (C9, B4 and B5): ``train()`` on the smoke configs of
+    qwen3-8b (head_dim 16), smollm-360m (head_dim 20), rwkv6-3b (N = 16)
+    and mamba2-2.7b (P = 32, N = 16), 3 steps at the training CLI's smoke
+    shape (batch 8 x 128), on the card and on the CPU from the same
+    weights; the losses held to SMOKE_TRAIN_TOL."""
     import contextlib
     import io
     from unittest import mock
@@ -1861,7 +2059,8 @@ def phase_smoke_train() -> dict:
     out = {}
     for arch, kernel in (("qwen3-8b", "flash_attention"),
                          ("smollm-360m", "flash_attention"),
-                         ("rwkv6-3b", "wkv")):
+                         ("rwkv6-3b", "wkv"),
+                         ("mamba2-2.7b", "ssd")):
         cfg = get_smoke(arch)
         runs = {}
         for dev in ("cuda", "cpu"):
@@ -1921,6 +2120,28 @@ def phase_rwkv_train() -> dict:
         tol=RWKV_TRAIN_TOL, tag="rwkv")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: train mamba2-2.7b at full width
+# ---------------------------------------------------------------------------
+
+def phase_mamba_train() -> dict:
+    """Phase 8: mamba2-2.7b at its published widths, global batch
+    MAMBA_BATCH, B5 at the core of every layer (``train_full_width``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba2_ssd import ops as sops
+    from repro_torch.kernels.mamba2_ssd import ref as sref
+
+    want = dict(n_layers=64, d_model=2560, vocab=50_288, ssm_state=128,
+                ssm_head_dim=64, ssm_expand=2, conv_width=4,
+                param_dtype="float32", compute_dtype="bfloat16", remat=True)
+    return train_full_width(
+        get_config("mamba2-2.7b"), want, MAMBA_BATCH, kernel=sops.ssd,
+        ops_module=sops,
+        plain=lambda x, dt, A, Bs, Cs, s0, Q: sref.ssd_chunked_ref(
+            x, dt, A, Bs, Cs, init_state=s0, chunk=Q),
+        tol=MAMBA_TRAIN_TOL, tag="mamba")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1966,12 +2187,14 @@ def main() -> int:
     b3 = phase_flash_kernel()
     b3["widths"] = phase_flash_widths()
     b4 = phase_wkv_kernel()
+    b5 = phase_ssd_kernel()
     ladder = phase_ladder()
     full = phase_full(card)
     torch.cuda.empty_cache()
     trained = phase_train()
     smoke_trained = phase_smoke_train()
     rwkv = phase_rwkv_train()
+    mamba = phase_mamba_train()
     # Launches on the main path: B1 in run (b), B2 in run (d); each
     # run's counts beside them.
     runs = {"b": {"paged_attention": full["kernel_launches"],
@@ -1987,11 +2210,14 @@ def main() -> int:
     # B4 on its main path: phase 7's train() run.
     b4["launches"] = rwkv["launches"]["wkv"]
     b4["launches_by_run"] = {"train rwkv6-3b": b4["launches"]}
-    kerns = [b1, b2, b3, b4]
+    # B5 on its main path: phase 8's train() run.
+    b5["launches"] = mamba["launches"]["ssd"]
+    b5["launches_by_run"] = {"train mamba2-2.7b": b5["launches"]}
+    kerns = [b1, b2, b3, b4, b5]
 
     result = {"card": card, "kernels": kerns, "ladder": ladder,
               "full": full, "train": trained, "smoke_train": smoke_trained,
-              "train_rwkv": rwkv,
+              "train_rwkv": rwkv, "train_mamba": mamba,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,13 +1,13 @@
 """Architecture and shape configs (port copy of the fields it reads).
 
 The fields of ``repro/configs/base.py::ArchConfig`` that the dense
-serving and training paths and the rwkv6 training path read, with the
-same names and defaults, and ``ShapeConfig``/``SHAPES``.  The
-reference's sharding and scan knobs (``constrain`` axes,
+serving and training paths and the rwkv6 and mamba2 training paths
+read, with the same names and defaults, and ``ShapeConfig``/``SHAPES``.
+The reference's sharding and scan knobs (``constrain`` axes,
 ``unroll_layers``) have no counterpart: the port runs on one device and
 loops over layers in Python.  Families and features outside the port
-(MoE, mamba, hybrid, enc-dec, relu2 MLPs) are rejected by the model
-code, not silently ignored.
+(MoE, hybrid, enc-dec, relu2 MLPs) are rejected by the model code, not
+silently ignored.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense (serves, trains) | ssm (rwkv6, trains)
+    family: str                  # dense (serves, trains) | ssm (rwkv6,
+                                 # trains) | mamba (mamba2, trains)
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,6 +31,11 @@ class ArchConfig:
     qk_norm: bool = False
     mlp_kind: str = "swiglu"
     rope_theta: float = 10_000.0
+    # Mamba-2 (family "mamba")
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
     # RWKV (family "ssm")
     rwkv_head_dim: int = 64
     # Numerics / memory.  Serving stores params in ``compute_dtype`` (the

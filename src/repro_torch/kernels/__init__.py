@@ -6,6 +6,7 @@ all at once (``_build.build_all(SOURCES)``) before first use.
 """
 
 from repro_torch.kernels.flash_attention.kernel import SOURCES as _FLASH
+from repro_torch.kernels.mamba2_ssd.kernel import SOURCES as _SSD
 from repro_torch.kernels.paged_attention.kernel import SOURCES as _PAGED
 from repro_torch.kernels.rwkv6_wkv.kernel import SOURCES as _WKV
 
@@ -13,4 +14,5 @@ SOURCES = {
     "paged_attention": _PAGED,
     "flash_attention": _FLASH,
     "rwkv6_wkv": _WKV,
+    "mamba2_ssd": _SSD,
 }

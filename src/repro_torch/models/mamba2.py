@@ -1,0 +1,241 @@
+"""Mamba-2 (SSD) block and the pure-SSD language model (port of the
+training half of ``repro/models/mamba2.py``).
+
+Shapes: x (B, S, d_model); inside, d_inner = expand * d_model splits into
+H = d_inner / P heads of dim P; the state is N = ssm_state wide; one
+group (B and C shared by every head).  The full-sequence block runs its
+SSD scan through kernel B5 (``kernels/mamba2_ssd``), where the reference
+runs its jnp twin ``ssd_chunked``.  The twin is kept here, in the
+compute dtype as the reference has it, for the tests; B5 computes in f32
+and rounds once, so the two agree tightly in f32 compute and to a
+tolerance in bf16.
+
+``softplus`` is ``F.softplus``, whose ``threshold=20`` returns x itself
+above 20 where ``jax.nn.softplus`` adds ``log1p(exp(-x))`` < 2.1e-9: in
+f32 that sum rounds back to x (its ulp at 20 is 1.9e-6), so the two agree.
+
+Layer params are stacked on a leading L axis as in the reference; its
+``scan`` over layers becomes a Python loop, each layer under the
+config's remat policy (under "full" B5 launches twice a layer a step).
+``lm_loss`` casts the float32 masters to the compute dtype once at its
+entry, except ``A_log`` and ``dt_bias``, which the reference reads in
+float32.  Decode, the cache and state pool, and prefill wait for ROADMAP
+A11 (rest).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+from repro_torch.models.layers import (PDef, chunked_cross_entropy,
+                                       init_params, rms_norm, rms_norm_defs,
+                                       stack_defs)
+from repro_torch.models.remat import resolve_policy, wrap_layer_body
+from repro_torch.models.transformer import (compute_dtype, layer_params,
+                                            padded_vocab)
+
+# Leaves the reference reads as float32 whatever the compute dtype.
+_F32_LEAVES = ("A_log", "dt_bias")
+
+
+def mamba2_defs(d: int, *, expand: int = 2, head_dim: int = 64,
+                state: int = 64, conv_width: int = 4) -> dict:
+    d_in = expand * d
+    nheads = d_in // head_dim
+    conv_ch = d_in + 2 * state
+    return {
+        "norm": PDef((d,), "ones"),
+        # in_proj -> [z (d_in), x (d_in), B (N), C (N), dt (H)]
+        "in_proj": PDef((d, 2 * d_in + 2 * state + nheads)),
+        "conv_w": PDef((conv_width, conv_ch), "small"),
+        "conv_b": PDef((conv_ch,), "zeros"),
+        "A_log": PDef((nheads,), "zeros"),
+        "D": PDef((nheads,), "ones"),
+        "dt_bias": PDef((nheads,), "zeros"),
+        "gate_norm": PDef((d_in,), "ones"),
+        "out_proj": PDef((d_in, d)),
+    }
+
+
+def _split_proj(zxbcdt, d_in, state, nheads):
+    z = zxbcdt[..., :d_in]
+    xs = zxbcdt[..., d_in: 2 * d_in]
+    Bs = zxbcdt[..., 2 * d_in: 2 * d_in + state]
+    Cs = zxbcdt[..., 2 * d_in + state: 2 * d_in + 2 * state]
+    dt = zxbcdt[..., 2 * d_in + 2 * state:]
+    return z, xs, Bs, Cs, dt
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv, K terms summed in x's dtype as the
+    reference does. x: (B, S, ch); w: (K, ch)."""
+    K = w.shape[0]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(K):
+        out = out + pad[:, i: i + x.shape[1]] * w[i]
+    return out + b
+
+
+def ssd_chunked(xh, dt, A, Bs, Cs, *, chunk: int, init_state=None):
+    """The reference's chunked SSD scan in the inputs' dtype (its
+    cumsum, exps and einsums round there; the state is carried in f32).
+    xh: (B, S, H, P); dt: (B, S, H) after softplus; A: (H,) negative;
+    Bs, Cs: (B, S, N).  Returns (y (B, S, H, P), final state (B, H, P, N)
+    in xh's dtype).  The model runs B5 instead; this twin is the tests'
+    bridge to the JAX model."""
+    Bsz, S, H, P = xh.shape
+    N = Bs.shape[-1]
+    nc = S // chunk
+    assert S % chunk == 0, (S, chunk)
+    cm = lambda t: t.reshape(Bsz, nc, chunk, *t.shape[2:]).movedim(1, 0)
+    xc, dtc, Bc, Cc = cm(xh), cm(dt), cm(Bs), cm(Cs)
+    ii = torch.arange(chunk, device=xh.device)
+    causal = (ii[:, None] >= ii[None, :])[None, :, :, None]   # (1,Q,Q,1)
+    state = (torch.zeros((Bsz, H, P, N), dtype=xh.dtype, device=xh.device)
+             if init_state is None else init_state).float()
+    zero = torch.zeros((), dtype=xh.dtype, device=xh.device)
+    ys = []
+    for c in range(nc):
+        x_c, dt_c, B_c, C_c = xc[c], dtc[c], Bc[c], Cc[c]
+        cum = torch.cumsum(dt_c * A, dim=1)                   # (B,Q,H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]         # (B,Q,Q,H)
+        L = torch.where(causal, torch.exp(seg), zero).to(xh.dtype)
+        CB = torch.einsum("bin,bjn->bij", C_c, B_c)
+        xdt = x_c * dt_c[..., None]
+        y_diag = torch.einsum("bij,bijh,bjhp->bihp", CB, L, xdt)
+        out_decay = torch.exp(cum).to(xh.dtype)
+        y_off = torch.einsum("bin,bhpn,bih->bihp", C_c,
+                             state.to(xh.dtype), out_decay)
+        decay_states = torch.exp(cum[:, -1:] - cum)
+        st_c = torch.einsum("bjn,bjh,bjhp->bhpn", B_c, decay_states, xdt)
+        chunk_decay = torch.exp(cum[:, -1]).float()
+        state = state * chunk_decay[:, :, None, None] + st_c.float()
+        ys.append(y_diag + y_off)
+    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
+    return y, state.to(xh.dtype)
+
+
+def mamba2_apply(params, x, *, expand=2, head_dim=64, state=64,
+                 conv_width=4, chunk=256):
+    """Full-sequence block apply. x: (B, S, d) -> (B, S, d).  ``params``
+    are in x's dtype (``lm_loss`` casts them once), ``A_log`` and
+    ``dt_bias`` in any float dtype (read as float32)."""
+    B, S, d = x.shape
+    dt_ = x.dtype
+    d_in = expand * d
+    H = d_in // head_dim
+
+    h = rms_norm(x, params["norm"])
+    zxbcdt = h @ params["in_proj"]
+    z, _, _, _, dtr = _split_proj(zxbcdt, d_in, state, H)
+
+    # [x, B, C] are adjacent columns of the projection: one conv over them.
+    xbc = F.silu(_causal_conv(zxbcdt[..., d_in: 2 * d_in + 2 * state],
+                              params["conv_w"], params["conv_b"]))
+    xs, Bs, Cs = (xbc[..., :d_in], xbc[..., d_in:d_in + state],
+                  xbc[..., d_in + state:])
+
+    dt = F.softplus(dtr.float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+    xh = xs.reshape(B, S, H, head_dim)
+
+    y, _ = ssd_ops.ssd(xh, dt.to(dt_), A.to(dt_), Bs, Cs,
+                       chunk=min(chunk, S))
+    y = y + xh * params["D"][None, None, :, None]
+    y = y.reshape(B, S, d_in)
+    y = rms_norm(y * F.silu(z), params["gate_norm"])
+    return y @ params["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# Language model: embed -> L x residual mamba2 block -> norm -> head.
+# ---------------------------------------------------------------------------
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "mamba":
+        raise ValueError(f"{cfg.name}: mamba2 runs the mamba family, not "
+                         f"{cfg.family!r}")
+
+
+def _block_kw(cfg: ArchConfig) -> dict:
+    return dict(expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                state=cfg.ssm_state, conv_width=cfg.conv_width)
+
+
+def model_defs(cfg: ArchConfig) -> dict:
+    _check_family(cfg)
+    d = cfg.d_model
+    return {
+        "embedding": PDef((padded_vocab(cfg.vocab), d), "small"),
+        "lm_head": PDef((d, padded_vocab(cfg.vocab))),
+        "final_norm": rms_norm_defs(d),
+        "layers": stack_defs(mamba2_defs(d, **_block_kw(cfg)),
+                             cfg.n_layers),
+    }
+
+
+def init(cfg: ArchConfig, generator: torch.Generator,
+         device: torch.device, dtype=None) -> dict:
+    """Random weights drawn on ``device`` from ``generator`` in ``dtype``
+    (default the compute dtype; training passes float32 for its
+    masters)."""
+    return init_params(model_defs(cfg), generator, device,
+                       dtype or compute_dtype(cfg))
+
+
+def cast_params(cfg: ArchConfig, params: dict) -> dict:
+    """The param tree in the compute dtype (a differentiable cast), but
+    ``A_log`` and ``dt_bias`` as they are."""
+    dt = compute_dtype(cfg)
+    return {k: (v if k in _F32_LEAVES else cast_params(cfg, v)
+                if isinstance(v, dict) else v.to(dt))
+            for k, v in params.items()}
+
+
+def forward(cfg: ArchConfig, params, tokens):
+    """tokens (B, S) -> final-normed hidden (B, S, d).  ``params`` as
+    ``cast_params`` gives them."""
+    _check_family(cfg)
+    h = params["embedding"][tokens.long()]
+
+    def body(h, lp):
+        return h + mamba2_apply(lp, h, **_block_kw(cfg))
+
+    body_fn = wrap_layer_body(body, resolve_policy(cfg))
+    for l in range(cfg.n_layers):
+        h = body_fn(h, layer_params(params, l))
+    return rms_norm(h, params["final_norm"])
+
+
+def lm_loss(cfg: ArchConfig, params, batch):
+    """Mean next-token cross-entropy.  batch: {"tokens": (B, S),
+    "labels": (B, S)}; ``params`` in any float dtype, cast once here."""
+    params = cast_params(cfg, params)
+    h = forward(cfg, params, batch["tokens"])
+    labels = batch["labels"]
+    return chunked_cross_entropy(
+        h, params, labels, chunk=min(cfg.loss_chunk, labels.shape[1]),
+        compute_dtype=compute_dtype(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Decode, cache and prefill: not ported yet.
+# ---------------------------------------------------------------------------
+
+def _not_ported(what: str):
+    def raise_(*args, **kwargs):
+        raise NotImplementedError(
+            f"mamba2 {what} is not ported yet (ROADMAP A11, rest)")
+    raise_.__name__ = what
+    return raise_
+
+
+mamba2_decode = _not_ported("mamba2_decode")
+cache_spec = _not_ported("cache_spec")
+decode_step = _not_ported("decode_step")
+paged_decode_step = _not_ported("paged_decode_step")
+prefill_step = _not_ported("prefill_step")

@@ -2,12 +2,12 @@
 (port of ``repro/models/model_zoo.py``).
 
 ``get_model(cfg, device=None)`` returns a ``ModelAPI`` whose functions
-close over the arch config and the device (``None`` = CUDA).  Two
+close over the arch config and the device (``None`` = CUDA).  Three
 families are ported.  The dense family has the training loss and every
 serving hook: decode, chunked prefill and speculative verify, each dense
-and paged.  The ssm family (rwkv6) has the training loss; its serving
-hooks raise, naming ROADMAP A11 (rest).  ``input_specs``/``make_batch``
-give a training cell's batch.
+and paged.  The ssm (rwkv6) and mamba (mamba2) families have the
+training loss; their serving hooks raise, naming ROADMAP A11 (rest).
+``input_specs``/``make_batch`` give a training cell's batch.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import rwkv_lm, transformer
+from repro_torch.models import mamba2, rwkv_lm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +64,14 @@ def _serving_not_ported(cfg: ArchConfig, hook: str):
 
 
 def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
-    if cfg.family == "ssm":
-        return _rwkv_model(cfg, resolve_device(device))
+    if cfg.family in _TRAINING_ONLY:
+        return _training_only_model(cfg, resolve_device(device),
+                                    _TRAINING_ONLY[cfg.family])
     if cfg.family != "dense" or cfg.n_experts:
         raise NotImplementedError(
             f"family {cfg.family!r} (n_experts {cfg.n_experts}) is not "
-            f"ported yet; repro_torch runs the dense and ssm families "
-            f"(ROADMAP A11-A12)")
+            f"ported yet; repro_torch runs the dense, ssm and mamba "
+            f"families (ROADMAP A11-A12)")
     dev = resolve_device(device)
     mod = transformer
     return ModelAPI(
@@ -103,18 +104,24 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
     )
 
 
-def _rwkv_model(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
-    """rwkv6: the training loss only; every serving hook raises."""
+# The families the port trains but does not serve yet: family -> module.
+_TRAINING_ONLY = {"ssm": rwkv_lm, "mamba": mamba2}
+
+
+def _training_only_model(cfg: ArchConfig, dev: torch.device,
+                         mod) -> ModelAPI:
+    """rwkv6, mamba2: the training loss only; every serving hook
+    raises."""
     hooks = ("decode_step", "cache_spec", "init_cache", "cache_axes",
              "paged_decode_step", "prefill_step", "paged_prefill_step",
              "verify_step", "paged_verify_step")
     return ModelAPI(
         cfg=cfg,
         device=dev,
-        init=lambda generator, dtype=None: rwkv_lm.init(cfg, generator, dev,
-                                                        dtype),
-        defs=lambda: rwkv_lm.model_defs(cfg),
-        loss=lambda params, batch: rwkv_lm.lm_loss(cfg, params, batch),
+        init=lambda generator, dtype=None: mod.init(cfg, generator, dev,
+                                                    dtype),
+        defs=lambda: mod.model_defs(cfg),
+        loss=lambda params, batch: mod.lm_loss(cfg, params, batch),
         **{h: _serving_not_ported(cfg, h) for h in hooks})
 
 

@@ -1,6 +1,6 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (B1 decode, B2
-multi-query, B3 flash attention, B4 RWKV-6 WKV) against their plain
-PyTorch versions on the card.  They carry the ``cuda`` marker and
+multi-query, B3 flash attention, B4 RWKV-6 WKV, B5 Mamba-2 SSD) against
+their plain PyTorch versions on the card.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -265,3 +265,138 @@ def test_wkv_function_gradients_match_autograd_through_plain():
             t.grad = None
     for got, want in zip(grads["function"], grads["plain"]):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _ssd_case(B, S, H, P, N, *, dtype, state, strong=False, seed=4):
+    """Inputs as the model makes them: dt after softplus (4 dt + 1 under
+    ``strong``, so the cumsum of dt A passes -100 within 32 rows), A
+    negative, x, Bs, Cs (B, S, ...) and an f32 state or None."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s, sc=0.5: (torch.randn(s, generator=g, device="cuda")
+                             * sc).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda"))
+    if strong:
+        dt = 4 * dt + 1
+    A = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.3)
+    s0 = (torch.randn((B, H, P, N), generator=g, device="cuda") * 0.2
+          if state else None)
+    return (mk(B, S, H, P), dt.to(dtype), A.to(dtype), mk(B, S, N),
+            mk(B, S, N), s0)
+
+
+def _ssd_close(got, want, dtype):
+    """y within 2e-5 of its largest magnitude (bf16: plus one bf16 ulp of
+    each element), the f32 state within 2e-5 of its largest magnitude:
+    both sides compute in f32 and differ in summation order and in where
+    the scan's chunks start."""
+    (y, sf), (wy, ws) = got, want
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(sf).all()
+    es = (sf - ws).abs().max()
+    assert es <= 2e-5 * ws.abs().max(), float(es)
+    ey = (y.float() - wy.float()).abs()
+    scale = wy.float().abs().max()
+    ulp = 2.0 ** -7 * wy.float().abs() if dtype == torch.bfloat16 else 0.0
+    assert (ey <= 2e-5 * scale + ulp).all(), float(ey.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [
+    (2, 1024, 16, 64, 128, 256),    # mamba2-2.7b's heads and state
+    (2, 128, 4, 32, 16, 128),       # smoke width
+    (2, 40, 2, 8, 8, 8),            # odd chunk count, S not a tile
+    (1, 200, 3, 20, 10, 40),        # P, N not multiples of 4
+    (2, 300, 4, 48, 128, 100),      # blocks of 32 and 16 P columns
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("state", [False, True])
+def test_ssd_kernel_matches_plain(dims, dtype, state):
+    """B5 against ``ssd_chunked_ref`` at the model's chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.mamba2_ssd import ops as sops
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref
+
+    B, S, H, P, N, Q = dims
+    *ins, s0 = _ssd_case(B, S, H, P, N, dtype=dtype, state=state)
+    before = sops.ssd.launches
+    got = sops.ssd(*ins, init_state=s0, chunk=Q)
+    torch.cuda.synchronize()
+    assert sops.ssd.launches == before + 1
+    _ssd_close(got, ssd_chunked_ref(*ins, init_state=s0, chunk=Q), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_kernel_holds_a_strong_decay(dtype):
+    """dt A sums past -100 inside one chunk: a kernel that factorised
+    exp(cum_i - cum_j) as exp(cum_i) exp(-cum_j) would overflow."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.mamba2_ssd import ops as sops
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref
+
+    *ins, s0 = _ssd_case(2, 512, 4, 64, 128, dtype=dtype, state=True,
+                         strong=True)
+    cum = torch.cumsum((ins[1].float() * ins[2].float()).reshape(
+        2, 2, 256, 4), dim=2)
+    assert cum.min() < -100
+    got = sops.ssd(*ins, init_state=s0, chunk=256)
+    _ssd_close(got, ssd_chunked_ref(*ins, init_state=s0, chunk=256), dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_strided_operands():
+    """x, Bs and Cs as column slices of one (B, S, H P + 2 N) tensor, as
+    ``mamba2_apply`` passes them: the kernel reads them through their
+    strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.mamba2_ssd import ops as sops
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref
+
+    B, S, H, P, N = 2, 512, 8, 64, 128
+    x, dt, A, Bs, Cs, s0 = _ssd_case(B, S, H, P, N, dtype=torch.bfloat16,
+                                     state=True)
+    conv = torch.cat([x.reshape(B, S, H * P), Bs, Cs], dim=-1)
+    xv = conv[..., :H * P].reshape(B, S, H, P)
+    bv, cv = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    assert not xv.is_contiguous() and not bv.is_contiguous()
+    got = sops.ssd(xv, dt, A, bv, cv, init_state=s0, chunk=256)
+    _ssd_close(got, ssd_chunked_ref(x, dt, A, Bs, Cs, init_state=s0,
+                                    chunk=256), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_ssd_function_gradients_match_autograd_through_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.mamba2_ssd import ops as sops
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref
+
+    ins = [t.requires_grad_() for t in _ssd_case(
+        2, 256, 4, 32, 16, dtype=torch.float32, state=True)]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    wy = torch.randn(ins[0].shape, generator=g, device="cuda")
+    grads = {}
+    for name, fn in (("function", sops.ssd), ("plain", ssd_chunked_ref)):
+        y, sf = fn(*ins[:5], init_state=ins[5], chunk=64)
+        ((y * wy).sum() + sf.sum()).backward()
+        grads[name] = [t.grad.clone() for t in ins]
+        for t in ins:
+            t.grad = None
+    for got, want in zip(grads["function"], grads["plain"]):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_wide_heads():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.mamba2_ssd import ops as sops
+
+    *ins, _ = _ssd_case(1, 64, 2, 72, 16, dtype=torch.bfloat16,
+                        state=False)
+    with pytest.raises(ValueError, match="P <= 64"):
+        sops.ssd(*ins)
