@@ -60,6 +60,18 @@ Phases (any failure raises, and the script exits non-zero):
               plain version and the Function's forward and backward (no
               PyTorch call computes the scan, so no library time), the
               wrapper's host time, and the bound;
+     3f.    — B7 (the O0 rung) and B6 (O1..O5), the blocked matmul of
+              the paper's Fig. 4 ladder, against their plain versions
+              at every rung at MachSuite's 1024^3, at O3..O5 at 4096^3,
+              and at edges (the four shapes of the reference's tests at
+              every rung, odd divisor blocks whose rows copy 4 B or one
+              bf16 element at a time, a 256-wide tile in two sub-tiles,
+              bf16 operands at O0, and O1 stripes over the shared-memory
+              budget, which must raise); for each rung the blocks it ran,
+              device times of the kernel, the plain version and
+              ``torch.matmul`` (f32 with TF32 off; bf16 at O5), the
+              wrapper's host time, and the bound (f32 rungs at the 67
+              TFLOP/s f32 peak);
   4. ladder — smoke-width qwen3-8b on the card at O2, O4, O5, O6-gather,
               O6-kernel, with chunked prefill (chunks 3 and 8) on O5,
               O6-gather and O6-kernel, and at O7 with the smollm-360m
@@ -121,7 +133,14 @@ Phases (any failure raises, and the script exits non-zero):
               and B5's launches (64 forward + 64 remat recompute a step,
               asserted); step 0 with B5 and with its plain version in its
               place at 64 and 2 layers; a ``torch.profiler`` reading of
-              one step.
+              one step;
+  9. paper  — the paper's ladder on the card: ``ops.matmul(a, b, level)``
+              for O0..O5 at 1024^3 and O3..O5 at 4096^3, one B7 or B6
+              launch a call (asserted), each held to its plain version;
+              the Fig. 4 analogue (device ms per rung, speedup over O0
+              and over the rung before, beside the analytic model's);
+              ``machsuite.gemm.run`` at every level on the card at 32 x
+              32, held to the float64 oracle.
 
 Prints the card line and a JSON object of kernel numbers on lines before
 the last, writes the detailed numbers to ``chiprun_out/chip_smoke.json``,
@@ -146,6 +165,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# f32 FLOP/s outside the tensor cores (H100 SXM data sheet, 67 TFLOP/s):
+# the bound of B6's f32 rungs and of B7, which sum f32 FMAs.
+F32_FLOPS = 67e12
 # Clock cycles of the spin kernel that holds the device ahead of a timed
 # launch: about 5 ms at the H100's 1.98 GHz boost clock.
 SPIN_CYCLES = 10_000_000
@@ -208,6 +230,21 @@ RWKV_TRAIN_TOL = {32: {"loss": 1e-3}, 2: {"loss": 1e-3, "grad_norm": 1e-2}}
 # are 2-D (C8 does not apply), so grad_norm is held at both depths.
 MAMBA_TRAIN_TOL = {64: {"loss": 1e-3, "grad_norm": 1e-2},
                    2: {"loss": 1e-3, "grad_norm": 1e-2}}
+B6_SOURCE = "src/repro_torch/kernels/tiled_matmul/csrc/tiled_matmul.cu"
+B6_REPLACES = "src/repro/kernels/tiled_matmul/kernel.py:63"
+B7_REPLACES = "src/repro/kernels/tiled_matmul/kernel.py:121"
+# |kernel - plain| <= MATMUL_TOL * max|plain| for B6 and B7 at every
+# rung: both sum f32 products (a bf16 product is exact in f32) in another
+# order; at K = 4096 that order moves the sum by ~1e-6 of its scale.
+MATMUL_TOL = 1e-5
+# The ladder's sizes: MachSuite's gemm (paper Table 3, 1024 x 1024), and
+# 4096^3 for the parallel rungs, whose 1024^3 grid (64 tiles of 128 x
+# 128) leaves half the card's 132 SMs idle.
+LADDER_N = 1024
+LADDER_BIG = 4096
+# The one-SM rungs (O0..O2) take tens of ms at 1024^3 by design: timed
+# with a few repetitions, and never at 4096^3.
+SLOW_RUNGS = (0, 1, 2)
 
 
 def log(msg: str) -> None:
@@ -342,10 +379,11 @@ def check_case(name, case, kind, *, prefill=False):
     return float(err.max()), out
 
 
-def bound(nbytes: int, flops: int) -> tuple:
-    """(least time in ms, what bounds it) on an H100 SXM."""
+def bound(nbytes: int, flops: int, peak: float = BF16_FLOPS) -> tuple:
+    """(least time in ms, what bounds it) on an H100 SXM, the operations
+    at ``peak`` FLOP/s (bf16 unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1084,6 +1122,175 @@ def phase_ssd_kernel() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3f: B6 and B7 against their plain versions, rung by rung
+# ---------------------------------------------------------------------------
+
+def matmul_case(M, K, N, *, seed):
+    """f32 a (M, K), b (K, N) on the card from a numpy generator."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(seed)
+    return (torch.tensor(r.standard_normal((M, K)).astype(np.float32),
+                         device="cuda"),
+            torch.tensor(r.standard_normal((K, N)).astype(np.float32),
+                         device="cuda"))
+
+
+def rung_call(level: int, a, b, blocks=None):
+    """The kernel call ``ops.matmul(a, b, level)`` makes, on operands
+    already cast as the rung casts them, with its plain version, one
+    PyTorch library call computing the same product (``torch.matmul``:
+    f32 with TF32 off, or bf16 at O5), the operands and the blocks."""
+    import torch
+    from repro_torch.kernels.tiled_matmul import ops, ref
+
+    if level == 0:
+        return (lambda: ops.matmul_whole(a, b),
+                lambda: ref.matmul_ref(a, b),
+                lambda: torch.matmul(a, b), (a, b), None)
+    args = ops.rung(level, a.shape[0], b.shape[1], a.shape[1],
+                    blocks=blocks)
+    dtype = args.pop("dtype")
+    ac, bc = a.to(dtype), b.to(dtype)
+    return (lambda: ops.matmul_tiled(ac, bc, **args),
+            lambda: ref.matmul_tiled_ref(ac, bc, bk=args["bk"]),
+            lambda: torch.matmul(ac, bc), (ac, bc),
+            {k: args[k] for k in ("bm", "bn", "bk", "parallel_mn",
+                                  "double_buffer")})
+
+
+def check_matmul(name: str, level: int, a, b, blocks=None) -> dict:
+    """One rung on the card against its plain version (MATMUL_TOL)."""
+    import torch
+
+    kern, plain, _, _, blk = rung_call(level, a, b, blocks)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"{name} O{level}: {got.dtype} "
+                             f"{tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= MATMUL_TOL * scale:
+        raise AssertionError(f"[kernel] B{7 if level == 0 else 6} {name} "
+                             f"O{level}: max |kernel - plain| {err:.3e} > "
+                             f"{MATMUL_TOL} * {scale:.3e}")
+    return {"max_abs_err": err, "rel_err": err / scale, "blocks": blk}
+
+
+def time_rung(level: int, a, b) -> dict:
+    """Device times of one rung's kernel, plain version and library call,
+    the wrapper's host time, and the bound (bytes: operands as the
+    kernel reads them once and the f32 output written once; operations:
+    2 M N K at the f32 peak, or the bf16 peak at O5)."""
+    kern, plain, lib, (ac, bc), blk = rung_call(level, a, b)
+    slow = level in SLOW_RUNGS
+    reps, warm = (2, 1) if slow else (30, 3)
+    M, K = ac.shape
+    N = bc.shape[1]
+    nbytes = (ac.numel() * ac.element_size() + bc.numel() * bc.element_size()
+              + M * N * 4)
+    flops = 2 * M * N * K
+    bound_ms, bound_by = bound(nbytes, flops,
+                               BF16_FLOPS if level >= 5 else F32_FLOPS)
+    return {"ms": time_ms(kern, reps=reps, warmup=warm),
+            "plain_ms": time_ms(plain, reps=5 if slow else 10, warmup=1),
+            "library_ms": time_ms(lib, reps=10, warmup=2),
+            "wrapper_host_ms": host_ms(kern, reps=3 if slow else 200),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops, "blocks": blk}
+
+
+def phase_matmul_kernel() -> tuple:
+    """Phase 3f: B7 (O0) and B6 (O1..O5) against their plain versions at
+    MachSuite's 1024^3, O3..O5 at 4096^3, and at edges: the four shapes
+    of the reference's tests at every rung, odd divisor blocks (105^3,
+    whose rows copy 4 B at a time in f32 and element by element in
+    bf16; explicit (35, 21, 15) and (105, 7, 105)), K whole at O1, a
+    256-wide tile walked in two sub-tiles, bf16 operands at O0, and O1
+    stripes that cannot fit (must raise).  Times of every rung at 1024^3
+    and of O3..O5 at 4096^3.  Returns the B6 and B7 entries of the
+    kernels line."""
+    import torch
+    from repro_torch.kernels.tiled_matmul import ops
+
+    log(f"[kernel] B6/B7 checks with torch.backends.cuda.matmul.allow_tf32"
+        f" = {torch.backends.cuda.matmul.allow_tf32} (the library's f32 "
+        f"yardstick runs without TF32)")
+    errs = {}
+    n = LADDER_N
+    a, b = matmul_case(n, n, n, seed=60)
+    for level in range(6):
+        errs[f"{n}^3 O{level}"] = check_matmul(f"{n}^3", level, a, b)
+    big = matmul_case(LADDER_BIG, LADDER_BIG, LADDER_BIG, seed=61)
+    for level in (3, 4, 5):
+        errs[f"{LADDER_BIG}^3 O{level}"] = check_matmul(
+            f"{LADDER_BIG}^3", level, *big)
+    edges = [(32, 32, 32), (64, 96, 128), (128, 64, 32), (48, 80, 112),
+             (105, 105, 105), (256, 16, 256), (33, 35, 37)]
+    for i, (M, K, N) in enumerate(edges):
+        ea, eb = matmul_case(M, K, N, seed=62 + i)
+        for level in range(6):
+            errs[f"{M}x{K}x{N} O{level}"] = check_matmul(
+                f"M={M} K={K} N={N}", level, ea, eb)
+    ea, eb = matmul_case(105, 105, 105, seed=70)
+    for blocks in ((35, 21, 15), (105, 7, 105)):
+        for level in (1, 2, 3, 4, 5):
+            errs[f"105^3 blocks {blocks} O{level}"] = check_matmul(
+                f"105^3 blocks {blocks}", level, ea, eb, blocks)
+    a16, b16 = a[:256, :512].bfloat16(), b[:512, :128].bfloat16()
+    errs["bf16 as given O0"] = check_matmul("bf16 operands", 0, a16, b16)
+    wide = torch.ones(16, 32768, device="cuda")
+    try:
+        ops.matmul(wide, wide.t(), 1)
+    except ValueError as e:
+        log(f"[kernel] B6 O1 at K = 32768 refused as it must: {e}")
+    else:
+        raise AssertionError("O1 with stripes over the budget did not raise")
+    del wide
+    worst = max(errs.values(), key=lambda r: r["rel_err"])
+    log(f"[kernel] B6/B7: {len(errs)} cases within {MATMUL_TOL} of max "
+        f"|plain|; worst {worst['rel_err']:.3e} "
+        f"({max(errs, key=lambda k: errs[k]['rel_err'])})")
+
+    rungs = {}
+    for level in range(6):
+        rungs[f"O{level} {n}^3"] = time_rung(level, a, b)
+    for level in (3, 4, 5):
+        rungs[f"O{level} {LADDER_BIG}^3"] = time_rung(level, *big)
+    for key, r in rungs.items():
+        log(f"[kernel] B{7 if key.startswith('O0') else 6} {key} blocks "
+            f"{r['blocks']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['ms'] * 100:.2f}% of it; the wrapper's "
+            f"host time per call {r['wrapper_host_ms']:.4f} ms")
+    del a, b, big
+    torch.cuda.empty_cache()
+
+    def entry(name, replaces, key, err_keys):
+        r = rungs[key]
+        return {"name": name, "route": "cuda", "source": B6_SOURCE,
+                "replaces": replaces, "launches": None,
+                "max_abs_err": max(errs[k]["max_abs_err"] for k in err_keys),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "wrapper_host_ms": r["wrapper_host_ms"], "shape": key,
+                "blocks": r["blocks"]}
+
+    main_keys = [k for k in errs if k.startswith(("1024^3", "4096^3"))]
+    b6 = entry("tiled_matmul", B6_REPLACES, f"O5 {n}^3",
+               [k for k in main_keys if not k.endswith("O0")])
+    b6["rungs"] = {k: v for k, v in rungs.items() if not k.startswith("O0")}
+    b6["errors"] = {k: v for k, v in errs.items() if not k.endswith("O0")}
+    b7 = entry("matmul_whole", B7_REPLACES, f"O0 {n}^3", [f"{n}^3 O0"])
+    b7["errors"] = {k: v for k, v in errs.items() if k.endswith("O0")}
+    return b6, b7
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the ladder at smoke width
 # ---------------------------------------------------------------------------
 
@@ -1762,9 +1969,11 @@ def _counted():
     from repro_torch.kernels.mamba2_ssd import ops as sops
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.rwkv6_wkv import ops as wops
+    from repro_torch.kernels.tiled_matmul import ops as mops
 
     return (pops.paged_attention, pops.paged_prefill_attention,
-            fops.flash_attention, wops.wkv, sops.ssd)
+            fops.flash_attention, wops.wkv, sops.ssd, mops.matmul_tiled,
+            mops.matmul_whole)
 
 
 def reset_launches() -> None:
@@ -2142,6 +2351,102 @@ def phase_mamba_train() -> dict:
         tol=MAMBA_TRAIN_TOL, tag="mamba")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the paper's ladder on the card
+# ---------------------------------------------------------------------------
+
+def phase_paper_ladder() -> dict:
+    """Phase 9: ``ops.matmul(a, b, level)`` for O0..O5 at MachSuite's
+    1024^3 and O3..O5 at 4096^3 through the public wrapper, one B7 or B6
+    launch a call (asserted), each output held to its rung's plain
+    version; the Fig. 4 analogue (device ms per rung, speedup over O0
+    and over the rung before, beside the paper model's); then
+    ``machsuite.gemm.run`` at every level on the card at the reference
+    tests' scale (32 x 32) held to the float64 oracle."""
+    import numpy as np
+    import torch
+    from repro_torch.core import costmodel
+    from repro_torch.kernels.tiled_matmul import ops
+    from repro_torch.machsuite import gemm
+
+    n, nb = LADDER_N, LADDER_BIG
+    a, b = matmul_case(n, n, n, seed=90)
+    big = matmul_case(nb, nb, nb, seed=91)
+    calls = [(level, n, (a, b)) for level in range(6)] + [
+        (level, nb, big) for level in (3, 4, 5)]
+    reset_launches()
+    outs = []
+    for level, size, (x, y) in calls:
+        before = (ops.matmul_whole.launches, ops.matmul_tiled.launches)
+        outs.append(ops.matmul(x, y, level))
+        got = (ops.matmul_whole.launches - before[0],
+               ops.matmul_tiled.launches - before[1])
+        if got != ((1, 0) if level == 0 else (0, 1)):
+            raise AssertionError(f"O{level} {size}^3: launches (B7, B6) "
+                                 f"{got}")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if (launches["matmul_whole"], launches["matmul_tiled"]) != (1, 8) or any(
+            v for k, v in launches.items()
+            if k not in ("matmul_whole", "matmul_tiled")):
+        raise AssertionError(f"ladder launches {launches}")
+    for (level, size, (x, y)), out in zip(calls, outs):
+        _, plain, _, _, _ = rung_call(level, x, y)
+        want = plain()
+        err = float((out - want).abs().max())
+        if not err <= MATMUL_TOL * float(want.abs().max()):
+            raise AssertionError(f"ladder O{level} {size}^3 off its plain "
+                                 f"version by {err:.3e}")
+    del outs
+
+    ms = {}
+    for level, size, (x, y) in calls:
+        slow = level in SLOW_RUNGS
+        ms[f"O{level} {size}^3"] = time_ms(
+            lambda: ops.matmul(x, y, level), reps=2 if slow else 30,
+            warmup=1 if slow else 3)
+    model = costmodel.refinement_curve(costmodel.MACHSUITE_PROFILES["gemm"])
+    log(f"[paper] Fig. 4 analogue on the card, {n}^3 f32 (O5 bf16 "
+        f"operands), device ms through ops.matmul; the analytic model's "
+        f"speedups are the paper's 2012 FPGA platform, not the card:")
+    rows = []
+    for level in range(6):
+        t = ms[f"O{level} {n}^3"]
+        prev = ms[f"O{level - 1} {n}^3"] if level else t
+        m0 = model[0]["kernel_s"] / model[level]["kernel_s"]
+        rows.append({"level": level, "ms": t, "x_vs_O0": ms[f"O0 {n}^3"] / t,
+                     "x_vs_prev": prev / t, "model_x_vs_O0": m0})
+        log(f"[paper]   O{level}: {t:10.4f} ms  {rows[-1]['x_vs_O0']:9.1f}x "
+            f"vs O0  {rows[-1]['x_vs_prev']:7.2f}x vs O{max(level - 1, 0)}"
+            f"  (model {m0:.1f}x vs O0)")
+    for level in (3, 4, 5):
+        log(f"[paper]   O{level} at {nb}^3: {ms[f'O{level} {nb}^3']:.4f} ms")
+    del a, b, big
+    torch.cuda.empty_cache()
+
+    inp = gemm.make_inputs(np.random.default_rng(0), 32 / 1024)
+    want = gemm.oracle(**inp)
+    machsuite = {}
+    for level in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gemm.run(level, **inp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if out.device.type != "cuda":
+            raise AssertionError(f"gemm O{level} ran on {out.device}")
+        np.testing.assert_allclose(out.cpu().numpy(), want, rtol=2e-4,
+                                   atol=1e-5, err_msg=f"gemm O{level}")
+        machsuite[f"O{level}"] = {
+            "wall_s": wall,
+            "max_abs_err": float(np.abs(out.cpu().numpy() - want).max())}
+    log(f"[paper] machsuite gemm 32x32 on the card, every level held to "
+        f"the oracle (rtol 2e-4, atol 1e-5); wall s: "
+        f"{ {k: round(v['wall_s'], 4) for k, v in machsuite.items()} }")
+    return {"launches": launches, "ms": ms, "fig4": rows,
+            "machsuite_gemm": machsuite}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2188,6 +2493,7 @@ def main() -> int:
     b3["widths"] = phase_flash_widths()
     b4 = phase_wkv_kernel()
     b5 = phase_ssd_kernel()
+    b6, b7 = phase_matmul_kernel()
     ladder = phase_ladder()
     full = phase_full(card)
     torch.cuda.empty_cache()
@@ -2195,6 +2501,8 @@ def main() -> int:
     smoke_trained = phase_smoke_train()
     rwkv = phase_rwkv_train()
     mamba = phase_mamba_train()
+    torch.cuda.empty_cache()
+    paper = phase_paper_ladder()
     # Launches on the main path: B1 in run (b), B2 in run (d); each
     # run's counts beside them.
     runs = {"b": {"paged_attention": full["kernel_launches"],
@@ -2213,11 +2521,15 @@ def main() -> int:
     # B5 on its main path: phase 8's train() run.
     b5["launches"] = mamba["launches"]["ssd"]
     b5["launches_by_run"] = {"train mamba2-2.7b": b5["launches"]}
-    kerns = [b1, b2, b3, b4, b5]
+    # B6 and B7 on their main path: phase 9's ladder.
+    for k, wrapper in ((b6, "matmul_tiled"), (b7, "matmul_whole")):
+        k["launches"] = paper["launches"][wrapper]
+        k["launches_by_run"] = {"paper ladder": k["launches"]}
+    kerns = [b1, b2, b3, b4, b5, b6, b7]
 
     result = {"card": card, "kernels": kerns, "ladder": ladder,
               "full": full, "train": trained, "smoke_train": smoke_trained,
-              "train_rwkv": rwkv, "train_mamba": mamba,
+              "train_rwkv": rwkv, "train_mamba": mamba, "paper": paper,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -17,7 +17,14 @@ are written in CUDA for sm_90a
 family on one card (``launch.train``: f32 masters, bf16 compute, remat,
 AdamW, the synthetic stream, async checkpoints, the resilient loop),
 with the forward's causal attention in a CUDA flash-attention kernel
-(``kernels/flash_attention/csrc/flash_attention.cu``).  Everything else
+(``kernels/flash_attention/csrc/flash_attention.cu``); rwkv6 and mamba2
+train too, with their scans in CUDA (``kernels/rwkv6_wkv``,
+``kernels/mamba2_ssd``).  The paper layer runs the paper's O0..O5 ladder:
+the blocked matmul of its Fig. 4 as CUDA kernels B6/B7
+(``kernels/tiled_matmul``), MachSuite gemm at every level
+(``machsuite``), and the analytic cost model with its closed-loop
+autotuner (``core.costmodel``, ``core.guideline``, ``autotune``;
+``python -m repro_torch.autotune --kernel gemm``).  Everything else
 raises ``NotImplementedError`` naming its ROADMAP item.
 
 Entry points run on the CUDA device unless the caller passes

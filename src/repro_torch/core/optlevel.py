@@ -1,8 +1,10 @@
 """The paper's best-effort refinement steps as a config (port copy).
 
 A copy of the framework-free parts of ``repro/core/optlevel.py`` that the
-serving slice reads: ``Step``, the cumulative ``LADDER``, ``OptLevel``
-and the serving knobs of ``BestEffortConfig``.  Level semantics are the
+serving slice and the paper layer (cost model, guideline, autotuner,
+MachSuite, the tiled matmul) read: ``Step``, ``STEP_ORDER``, the
+cumulative ``LADDER``, ``OptLevel`` and the serving knobs of
+``BestEffortConfig``.  Level semantics are the
 reference's:
 
   O0  naive             O4  +double buffering (host/device overlap)

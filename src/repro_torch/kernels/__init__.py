@@ -9,10 +9,12 @@ from repro_torch.kernels.flash_attention.kernel import SOURCES as _FLASH
 from repro_torch.kernels.mamba2_ssd.kernel import SOURCES as _SSD
 from repro_torch.kernels.paged_attention.kernel import SOURCES as _PAGED
 from repro_torch.kernels.rwkv6_wkv.kernel import SOURCES as _WKV
+from repro_torch.kernels.tiled_matmul.kernel import SOURCES as _MATMUL
 
 SOURCES = {
     "paged_attention": _PAGED,
     "flash_attention": _FLASH,
     "rwkv6_wkv": _WKV,
     "mamba2_ssd": _SSD,
+    "tiled_matmul": _MATMUL,
 }

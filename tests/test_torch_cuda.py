@@ -400,3 +400,97 @@ def test_ssd_kernel_rejects_wide_heads():
                         state=False)
     with pytest.raises(ValueError, match="P <= 64"):
         sops.ssd(*ins)
+
+
+# ---------------------------------------------------------------------------
+# B6 / B7: the blocked matmul of the paper's ladder
+# ---------------------------------------------------------------------------
+
+# |kernel - plain| <= MATMUL_TOL * max|plain|: both sum f32 products (a
+# bf16 product is exact in f32), in another order.
+MATMUL_TOL = 1e-5
+
+
+def _matmul_case(M, K, N, *, seed):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((M, K)).astype(np.float32),
+            r.standard_normal((K, N)).astype(np.float32))
+
+
+def _matmul_close(got, want):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = (got.cpu() - want.cpu()).abs().max()
+    assert err <= MATMUL_TOL * want.abs().max().cpu(), float(err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 32, 32), (64, 96, 128),
+                                   (128, 64, 32), (48, 80, 112),
+                                   (105, 105, 105), (256, 16, 256),
+                                   (33, 35, 37)])
+@pytest.mark.parametrize("lvl", range(6))
+def test_matmul_kernels_match_plain_at_every_rung(shape, lvl):
+    """Each rung on the card (B7 at O0, B6 above, one launch a call)
+    against the same rung's plain version on the CPU.  (105, 105, 105)
+    copies f32 rows 4 B at a time and, at O5, bf16 rows element by
+    element; (256, 16, 256) walks a 256-wide tile in two sub-tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.tiled_matmul import ops as mops
+
+    a, b = (torch.tensor(x) for x in _matmul_case(*shape, seed=lvl))
+    counter = mops.matmul_whole if lvl == 0 else mops.matmul_tiled
+    before = counter.launches
+    got = mops.matmul(a.cuda(), b.cuda(), lvl)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _matmul_close(got, mops.matmul(a, b, lvl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(16, 16, 16), (32, 64, 16),
+                                    (64, 64, 64), (35, 21, 15),
+                                    (105, 7, 105)])
+@pytest.mark.parametrize("lvl", [1, 2, 3, 4, 5])
+def test_matmul_explicit_blocks_match_plain(blocks, lvl):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.tiled_matmul import ops as mops
+
+    n = 64 if max(blocks) <= 64 and 35 not in blocks else 105
+    a, b = (torch.tensor(x) for x in _matmul_case(n, n, n, seed=11))
+    got = mops.matmul(a.cuda(), b.cuda(), lvl, blocks=blocks)
+    _matmul_close(got, mops.matmul(a, b, lvl, blocks=blocks))
+
+
+@pytest.mark.cuda
+def test_matmul_whole_takes_bf16_as_given():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.tiled_matmul import ops as mops
+
+    a, b = (torch.tensor(x).to(torch.bfloat16)
+            for x in _matmul_case(40, 72, 24, seed=12))
+    _matmul_close(mops.matmul_whole(a.cuda(), b.cuda()),
+                  mops.matmul_whole(a, b))
+    with pytest.raises(TypeError):
+        mops.matmul_whole(a.cuda().half(), b.cuda().half())
+
+
+@pytest.mark.cuda
+def test_matmul_reads_views_and_refuses_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.tiled_matmul import ops as mops
+
+    a, b = (torch.tensor(x) for x in _matmul_case(96, 64, 80, seed=13))
+    at = a.t().contiguous().cuda().t()      # a transposed view
+    _matmul_close(mops.matmul(at, b.cuda(), 3), mops.matmul(a, b, 3))
+    # O1 keeps K whole: 1 x 1 stripes of K = 32768 f32 exceed 232,448 B.
+    wide = torch.ones(16, 32768, device="cuda")
+    with pytest.raises(ValueError, match="O1 keeps K whole"):
+        mops.matmul(wide, wide.t(), 1)
+    # explicit blocks whose tiles overflow a block's shared memory
+    big = torch.ones(512, 512, device="cuda")
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        mops.matmul(big, big, 4, blocks=(256, 256, 256))

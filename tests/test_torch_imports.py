@@ -118,3 +118,37 @@ def test_train_entry_points_default_to_cuda_and_never_fall_back(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_batch(cfg, shape, torch.Generator())
     assert build_train(cfg, shape, device="cpu").model.device.type == "cpu"
+
+
+def test_the_scan_covers_the_paper_layer():
+    mods = set(_modules())
+    assert {"repro_torch.core.hw", "repro_torch.core.costmodel",
+            "repro_torch.core.guideline", "repro_torch.autotune",
+            "repro_torch.autotune.__main__",
+            "repro_torch.autotune.measurement", "repro_torch.autotune.tuner",
+            "repro_torch.autotune.trajectory", "repro_torch.machsuite",
+            "repro_torch.machsuite.common", "repro_torch.machsuite.gemm",
+            "repro_torch.kernels.tiled_matmul.kernel",
+            "repro_torch.kernels.tiled_matmul.ops",
+            "repro_torch.kernels.tiled_matmul.ref"} <= mods
+
+
+def test_paper_layer_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    import numpy as np
+
+    from repro_torch.kernels.tiled_matmul import ops as mops
+    from repro_torch.machsuite import gemm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inp = gemm.make_inputs(np.random.default_rng(0), 32 / 1024)
+    for level in range(6):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            gemm.run(level, **inp)
+    assert gemm.run(5, **inp, device="cpu").device.type == "cpu"
+    # CPU tensors take the plain versions and launch no kernel.
+    a = torch.ones(32, 32)
+    counts = (mops.matmul_whole.launches, mops.matmul_tiled.launches)
+    for level in range(6):
+        assert torch.equal(mops.matmul(a, a, level),
+                           torch.full((32, 32), 32.0))
+    assert (mops.matmul_whole.launches, mops.matmul_tiled.launches) == counts
