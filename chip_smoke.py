@@ -27,6 +27,17 @@ Phases (any failure raises, and the script exits non-zero):
               one PyTorch library call (``scaled_dot_product_attention``
               on a pre-gathered dense view — a yardstick the port never
               calls), the wrapper's host time per call, and the bound;
+     3g.    — the quantized branch of B1 and B2 (B1q, B2q: int8 and fp8
+              e4m3 pools with (row, kv head) f32 scales, bf16 q) against
+              the plain versions at the main path's shapes (B1 decode;
+              B2 chunk B=1, Q=64 from 960; verify B=8, Q=5) and edges
+              (G=1, f32 q, smoke width), with NaN in the NULL block, the
+              unused rows and their scale rows, stale tails and a
+              zero-scale row; every output bitwise equal to the kernel on
+              the pool dequantized with ``kvquant.dequantize``; device
+              times of the kernel, the plain version and
+              ``scaled_dot_product_attention`` on the pre-dequantized
+              gathered view, the wrapper's host time, and the bound;
      3c.    — B3, the flash-attention kernel, against its plain version
               (TF32 off) at smollm-360m's training shape (B=8, S=4096,
               H=15, Hkv=5, D=64, causal), qwen3-8b's heads (H=32, Hkv=8,
@@ -99,7 +110,16 @@ Phases (any failure raises, and the script exits non-zero):
               window, B2 launches = layers x verify dispatches, the share
               of tokens equal to (d)'s, and a teacher-forced comparison of
               verify rows with decode rows that says where their bits
-              part;
+              part; (f) served from int8 and fp8 pools of (b)'s pool
+              bytes (about twice the rows) through B1q/B2q: (b)'s 8
+              requests prestaged, B1 launches = layers x ticks; 16
+              requests at batch 16 from bf16, int8 and fp8 pools (the
+              most admitted at once); on int8 (d) chunk 64 and (e) O7
+              K=4; a profile of int8 ticks; the int8 kernel step
+              teacher-forced against its plain version (2 layers tight,
+              36 loose); smoke width on the card against the CPU under
+              ``kvquant.tolerance_contract``; token agreement with the
+              bf16 runs reported;
   6. train  — smollm-360m at its published widths (32 layers, d_model
               960, 15 heads, 5 kv heads, head_dim 64, d_ff 2560, vocab
               49,152), f32 masters, bf16 compute, remat full, trained 5
@@ -175,6 +195,8 @@ SPIN_CYCLES = 10_000_000
 KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 B1_REPLACES = "src/repro/kernels/paged_attention/kernel.py:318"
 B2_REPLACES = "src/repro/kernels/paged_attention/kernel.py:254"
+# The quantized branch of both: _dequant and the ks/vs scale operands.
+BQ_REPLACES = "src/repro/kernels/paged_attention/kernel.py:64"
 # |kernel - plain| <= ATOL + RTOL * |plain|: two bf16 ulps for bf16
 # outputs; reduction-order noise for f32.  B2 takes |plain| as the
 # largest |plain| of the element's row (one query head): its short rows
@@ -350,6 +372,14 @@ def paged_case(B, H, KV, D, T, lengths, *, dtype, q_dtype=None, seed=0,
             torch.tensor(lengths, device=device))
 
 
+def paged_call(fn, case):
+    """``fn`` on a case: (q, k_pool, v_pool, tables, lengths), or a narrow
+    pool's case with its (k_scale, v_scale) after them."""
+    if len(case) == 7:
+        return fn(*case[:5], k_scale=case[5], v_scale=case[6])
+    return fn(*case)
+
+
 def check_case(name, case, kind, *, prefill=False):
     """Kernel vs plain on one case; returns (max |kernel - plain|, the
     kernel's output)."""
@@ -359,7 +389,7 @@ def check_case(name, case, kind, *, prefill=False):
     fn, plain = ((ops.paged_prefill_attention,
                   ref.paged_prefill_attention_ref) if prefill else
                  (ops.paged_attention, ref.paged_attention_ref))
-    out = fn(*case)
+    out = paged_call(fn, case)
     torch.cuda.synchronize()
     got, want = out.float(), plain(*case).float()
     if not torch.isfinite(got).all():
@@ -373,7 +403,8 @@ def check_case(name, case, kind, *, prefill=False):
         raise AssertionError(
             f"kernel case {name}: {int(bad.sum())} elements beyond "
             f"{atol} + {rtol}*|plain| (max err {float(err.max())})")
-    log(f"[kernel] {'B2' if prefill else 'B1'} {name}: max |kernel - plain| "
+    tag = ("B2" if prefill else "B1") + ("q" if len(case) == 7 else "")
+    log(f"[kernel] {tag} {name}: max |kernel - plain| "
         f"= {float(err.max()):.3e} (tolerance {atol} + {rtol}*|plain|"
         f"{' of the row' if prefill else ''})")
     return float(err.max()), out
@@ -392,8 +423,6 @@ def phase_kernel() -> tuple:
     the main case (phase 3b holds B2 at Q=1 against it)."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import ops, ref
 
     B, H, KV, D, T = 8, 32, 8, 128, 16
     r = np.random.default_rng(0)
@@ -423,25 +452,7 @@ def phase_kernel() -> tuple:
     zero = paged_case(3, H, KV, D, T, [0, 40, 3], dtype=bf, seed=7)
     check_case("a zero-length slot", zero, "bf16")
 
-    # Times at the main path's shapes.
-    ms = time_ms(lambda: ops.paged_attention(*main))
-    wrapper_ms = host_ms(lambda: ops.paged_attention(*main))
-    plain_ms = time_ms(lambda: ref.paged_attention_ref(*main))
-    q, kp, vp, tables, lens = main
-    kd, vd = dense_view(main)
-    mask = (torch.arange(kd.shape[2], device="cuda")[None] < lens[:, None])[
-        :, None, None, :]
-    q4 = q[:, :, None, :]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask, enable_gqa=True))
-
-    n_tok = int(lens.sum())
-    blocks = int(sum(-(-int(x) // T) for x in lens.tolist()))
-    nbytes = (q.numel() * q.element_size() * 2           # q in, out
-              + 2 * n_tok * KV * D * kp.element_size()   # K and V read
-              + blocks * 4 + B * 4)                      # tables, lengths
-    flops = 4 * H * D * n_tok                            # QK and PV
-    bound_ms, bound_by = bound(nbytes, flops)
+    t = time_decode(main)
     out = {
         "name": "paged_attention",
         "route": "cuda",
@@ -449,18 +460,73 @@ def phase_kernel() -> tuple:
         "replaces": B1_REPLACES,
         "launches": None,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-        "wrapper_host_ms": wrapper_ms,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "wrapper_host_ms")},
     }
-    log(f"[kernel] B1 main path: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, library (sdpa on a gathered view) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} FLOP); the "
-        f"wrapper's host time per call {wrapper_ms:.4f} ms")
+    log(f"[kernel] B1 main path: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library (sdpa on a gathered view) "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP); the "
+        f"wrapper's host time per call {t['wrapper_host_ms']:.4f} ms")
     return out, main
+
+
+def kv_bytes(case, n_tok: int, blocks: int) -> int:
+    """Bytes of K and V a paged case reads for ``n_tok`` positions over
+    ``blocks`` pool blocks: the words, and a narrow pool's (row, head)
+    scales of those blocks."""
+    kp = case[1]
+    KV, D = kp.shape[2], kp.shape[3]
+    scales = 2 * blocks * KV * 4 if len(case) == 7 else 0
+    return 2 * n_tok * KV * D * kp.element_size() + scales
+
+
+def wide_case(case):
+    """A narrow pool's case with its pools dequantized to q's dtype (the
+    kvquant rounding site) and no scales; a wide case as it is."""
+    if len(case) == 5:
+        return case
+    from repro_torch.serving import kvquant
+
+    q, kw, vw, tables, lens, ks, vs = case
+    return (q, kvquant.dequantize(kw, ks[:, None, :, None], q.dtype),
+            kvquant.dequantize(vw, vs[:, None, :, None], q.dtype), tables,
+            lens)
+
+
+def time_decode(case) -> dict:
+    """B1's kernel, plain and library times on one case (wide, or narrow
+    with its scales), the wrapper's host time, and the bound.  The
+    library call is ``scaled_dot_product_attention`` on the gathered —
+    for a narrow pool pre-dequantized — dense view."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    q, kp, _, tables, lens = case[:5]
+    B, H, D = q.shape
+    T = kp.shape[1]
+    kd, vd = dense_view(wide_case(case))
+    mask = (torch.arange(kd.shape[2], device="cuda")[None] < lens[:, None])[
+        :, None, None, :]
+    q4 = q[:, :, None, :]
+    res = {
+        "ms": time_ms(lambda: paged_call(ops.paged_attention, case)),
+        "wrapper_host_ms": host_ms(
+            lambda: paged_call(ops.paged_attention, case)),
+        "plain_ms": time_ms(lambda: ref.paged_attention_ref(*case)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask, enable_gqa=True)),
+    }
+    n_tok = int(lens.sum())
+    blocks = int(sum(-(-int(x) // T) for x in lens.tolist()))
+    nbytes = (q.numel() * q.element_size() * 2           # q in, out
+              + kv_bytes(case, n_tok, blocks)            # K, V (+ scales)
+              + blocks * 4 + B * 4)                      # tables, lengths
+    flops = 4 * H * D * n_tok                            # QK and PV
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    res.update(bytes=nbytes, flops=flops)
+    return res
 
 
 def dense_view(case):
@@ -468,7 +534,7 @@ def dense_view(case):
     zeroed: what ``scaled_dot_product_attention`` reads as a yardstick."""
     import torch
 
-    q, kp, vp, tables, _ = case
+    q, kp, vp, tables, _ = case[:5]
     B, nb = tables.shape
     _, T, KV, D = kp.shape
     rows = tables.reshape(-1).long()
@@ -480,7 +546,7 @@ def row_limits(case):
     """(B, Q) causal limit of every query row of a B2 case."""
     import torch
 
-    q, _, _, tables, lens = case
+    q, _, _, tables, lens = case[:5]
     Q = q.shape[1]
     lim = lens.long()[:, None] - (Q - 1 - torch.arange(Q, device=q.device))
     return lim.clamp(max=tables.shape[1] * case[1].shape[1])
@@ -492,27 +558,28 @@ def time_prefill(case) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ops, ref
 
-    q, kp, vp, tables, lens = case
+    q, kp, vp, tables, lens = case[:5]
     B, Q, H, D = q.shape
     KV = kp.shape[2]
-    kd, vd = dense_view(case)
+    kd, vd = dense_view(wide_case(case))
     lim = row_limits(case)
     mask = (torch.arange(kd.shape[2], device="cuda")[None, None]
             < lim[:, :, None])[:, None]                       # (B,1,Q,S)
     qh = q.transpose(1, 2)                                    # (B,H,Q,D)
     res = {
-        "ms": time_ms(lambda: ops.paged_prefill_attention(*case)),
-        "wrapper_host_ms": host_ms(lambda: ops.paged_prefill_attention(*case)),
+        "ms": time_ms(lambda: paged_call(ops.paged_prefill_attention, case)),
+        "wrapper_host_ms": host_ms(
+            lambda: paged_call(ops.paged_prefill_attention, case)),
         "plain_ms": time_ms(lambda: ref.paged_prefill_attention_ref(*case)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qh, kd, vd, attn_mask=mask, enable_gqa=True)),
     }
     span = lim.max(dim=1).values.clamp(min=0)                 # per slot
     n_tok = int(span.sum())
+    blocks = int(sum(-(-int(x) // kp.shape[1]) for x in span))
     nbytes = (q.numel() * q.element_size() * 2                # q in, out
-              + 2 * n_tok * KV * D * kp.element_size()        # K and V read
-              + int(sum(-(-int(x) // kp.shape[1]) for x in span)) * 4
-              + B * 4)                                        # tables, lengths
+              + kv_bytes(case, n_tok, blocks)                 # K, V (+ scales)
+              + blocks * 4 + B * 4)                           # tables, lengths
     flops = 4 * H * D * int(lim.clamp(min=0).sum())           # QK and PV
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
     res.update(bytes=nbytes, flops=flops,
@@ -617,6 +684,137 @@ def phase_prefill_kernel(b1_main) -> dict:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
             f"{t['flops']} FLOP); the wrapper's host time per call "
             f"{t['wrapper_host_ms']:.4f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g: the quantized branch of B1/B2 against its plain version
+# ---------------------------------------------------------------------------
+
+def quant_case(case, kvd, *, zero_scale_row=True):
+    """A wide ``paged_case`` quantized per (row, kv head) block to an int8
+    or fp8 pool: (q, k words, v words, tables, lengths, k_scale,
+    v_scale).  Rows no table references inside a length (the NULL block
+    among them) get NaN scales; their words and each slot's stale tail
+    get NaN bytes (0x7f) in an fp8 pool, 127 in an int8 one.  With
+    ``zero_scale_row`` the first block of the longest slot has scale 0,
+    as a never-written row has: it dequantizes to zeros."""
+    import torch
+    from repro_torch.serving import kvquant
+
+    q, kp, vp, tables, lens = case
+    out = []
+    for pool in (kp, vp):
+        bad = torch.isnan(pool)
+        x = torch.nan_to_num(pool.float())
+        s = kvquant.block_scale(x, (1, 3), kvd)
+        w = kvquant.quantize(x, s, kvd)
+        kvquant.as_bytes(w)[bad] = 0x7F
+        s = s[:, 0, :, 0].contiguous()
+        s[bad.flatten(1).all(1)] = float("nan")
+        if zero_scale_row:
+            s[int(tables[int(lens.argmax()), 0])] = 0.0
+        out += [w, s]
+    kw, ks, vw, vs = out
+    return q, kw, vw, tables, lens, ks, vs
+
+
+def phase_quant_kernel() -> dict:
+    """Phase 3g: the quantized branch of B1 and B2 (int8 and fp8 e4m3
+    pools, bf16 q) against the plain versions at the main path's shapes —
+    B1 at qwen3-8b decode, B2 at the chunk (B=1, Q=64, start 960) and the
+    verify window (B=8, Q=5) — and edges (G=1, f32 q, smoke width); each
+    output also bitwise equal to the kernel on the same pool dequantized
+    to q's dtype (bf16 on the main path) with no scales.  Returns the B1q
+    and B2q kernel-line entries: int8's times, fp8's beside them."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import ops
+
+    B, H, KV, D, T = 8, 32, 8, 128, 16
+    bf = torch.bfloat16
+    r = np.random.default_rng(0)
+    lengths = r.integers(1, 2049, B)
+    lengths[0], lengths[-1] = 1, 2048
+
+    def held(name, case, kvd, prefill=False):
+        err, got = check_case(f"{kvd} {name}", case, "bf16" if case[0].dtype
+                              == bf else "f32", prefill=prefill)
+        fn = ops.paged_prefill_attention if prefill else ops.paged_attention
+        wide = fn(*wide_case(case))
+        if not torch.equal(got, wide):
+            raise AssertionError(
+                f"B{2 if prefill else 1}q {kvd} {name}: differs from the "
+                f"kernel on the dequantized pool in "
+                f"{int((got != wide).sum())} elements")
+        return err
+
+    res = {}
+    for kvd in ("int8", "fp8"):
+        errs = {"b1": [], "b2": []}
+        main = quant_case(paged_case(B, H, KV, D, T, lengths, dtype=bf),
+                          kvd)
+        errs["b1"].append(held(f"main path B={B} H={H} KV={KV} D={D} T={T} "
+                               f"lengths={lengths.tolist()}", main, kvd))
+        errs["b1"].append(held("G=1 (H=KV=8)", quant_case(paged_case(
+            4, 8, 8, D, T, [5, 17, 300, 64], dtype=bf, seed=3), kvd), kvd))
+        held("f32 q", quant_case(paged_case(
+            4, H, KV, D, T, [7, 130, 1024, 33], dtype=bf,
+            q_dtype=torch.float32, seed=5), kvd), kvd)
+        errs["b1"].append(held("smoke width (H=4, KV=2, D=16, T=4)",
+                               quant_case(paged_case(
+                                   3, 4, 2, 16, 4, [1, 9, 32], dtype=bf,
+                                   seed=6), kvd), kvd))
+        chunk = quant_case(paged_case(1, H, KV, D, T, [960 + 64], dtype=bf,
+                                      q_len=64, seed=13, nb=64), kvd)
+        errs["b2"].append(held("chunked prefill B=1 Q=64 start=960", chunk,
+                               kvd, prefill=True))
+        verify = quant_case(paged_case(8, H, KV, D, T, lengths + 4, dtype=bf,
+                                       q_len=5, seed=20), kvd)
+        errs["b2"].append(held(f"verify B=8 Q=5 lengths="
+                               f"{(lengths + 4).tolist()}", verify, kvd,
+                               prefill=True))
+        errs["b2"].append(held("G=1 (H=KV=8) Q=7", quant_case(paged_case(
+            3, 8, 8, D, T, [7, 40, 300], dtype=bf, q_len=7, seed=21), kvd),
+            kvd, prefill=True))
+        q, kw, vw, tables, lens, ks, vs = main
+        one = ops.paged_prefill_attention(q[:, None].contiguous(), kw, vw,
+                                          tables, lens, k_scale=ks,
+                                          v_scale=vs)
+        if not torch.equal(one[:, 0], paged_call(ops.paged_attention, main)):
+            raise AssertionError(f"B2q {kvd} at Q=1 differs from B1q")
+        log(f"[kernel] B2q {kvd} at Q=1 bitwise equal to B1q; every case "
+            f"bitwise equal to the kernel on its dequantized pool")
+        b1 = time_decode(main)
+        b2 = time_prefill(chunk)
+        b2["verify"] = time_prefill(verify)
+        res[kvd] = {"b1": b1, "b2": b2, "b1_err": max(errs["b1"]),
+                    "b2_err": max(errs["b2"])}
+        for what, t in (("B1q decode", b1), ("B2q chunk", b2),
+                        ("B2q verify", b2["verify"])):
+            log(f"[kernel] {what} {kvd}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library (sdpa on a pre-dequantized "
+                f"gathered view) {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
+                f"{t['flops']} FLOP); the wrapper's host time per call "
+                f"{t['wrapper_host_ms']:.4f} ms")
+        del main, chunk, verify
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "wrapper_host_ms")
+    out = []
+    for name, which, replaces in (
+            ("paged_attention_quantized", "b1", BQ_REPLACES),
+            ("paged_prefill_attention_quantized", "b2", BQ_REPLACES)):
+        t = res["int8"][which]
+        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                 "replaces": replaces, "launches": None,
+                 "max_abs_err": max(res[k][f"{which}_err"] for k in res),
+                 **{k: t[k] for k in keys}, "kv_dtype": "int8",
+                 "fp8": {k: res["fp8"][which][k] for k in keys}}
+        if which == "b2":
+            entry["verify"] = {kvd: {k: res[kvd]["b2"]["verify"][k]
+                                     for k in keys} for kvd in res}
+        out.append(entry)
     return out
 
 
@@ -1474,12 +1672,13 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
 
 
 def profile_ticks(model, params, reqs, *, B, max_seq, T, pool_blocks,
-                  warm=24, ticks=8) -> dict:
+                  warm=24, ticks=8, kv_dtype="bf16") -> dict:
     """Device time per decode tick by kernel name, from ``torch.profiler``
     (CUDA activity only, to keep host overhead down) over ``ticks`` ticks
-    of a fresh O6-kernel engine serving ``reqs``, after ``warm`` ticks.
-    Profiled ticks run slower on the host than unprofiled ones, so the
-    idle share read here is an upper bound."""
+    of a fresh O6-kernel engine serving ``reqs`` from a ``kv_dtype``
+    pool, after ``warm`` ticks, and the device kernels launched per
+    tick.  Profiled ticks run slower on the host than unprofiled ones, so
+    the idle share read here is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.optlevel import BestEffortConfig, OptLevel
@@ -1488,7 +1687,8 @@ def profile_ticks(model, params, reqs, *, B, max_seq, T, pool_blocks,
     eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
                        config=BestEffortConfig(
                            level=OptLevel.O6, paged_attn="kernel",
-                           kv_block_size=T, kv_pool_blocks=pool_blocks))
+                           kv_block_size=T, kv_pool_blocks=pool_blocks,
+                           kv_dtype=kv_dtype))
     for prompt, n in reqs:
         eng.submit(Request(prompt=list(prompt), max_new_tokens=n))
     for _ in range(warm):
@@ -1501,18 +1701,37 @@ def profile_ticks(model, params, reqs, *, B, max_seq, T, pool_blocks,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
     by_name = {}
+    launched = 0
     for ev in prof.key_averages():
         us = (getattr(ev, "self_device_time_total", 0)
               or getattr(ev, "self_cuda_time_total", 0))
         if us:
             by_name[ev.key] = us / 1e3 / ticks
+            launched += ev.count
     busy = sum(by_name.values())
     paged = sum(v for k, v in by_name.items() if "paged_rows_kernel" in k)
-    return {"ticks": ticks, "after_ticks": warm, "wall_ms_per_tick": wall_ms,
+    return {"ticks": ticks, "after_ticks": warm, "kv_dtype": kv_dtype,
+            "wall_ms_per_tick": wall_ms,
             "device_ms_per_tick": busy if busy else None,
             "idle_share": 1 - busy / wall_ms if busy else None,
             "paged_kernel_ms_per_tick": paged if busy else None,
+            "device_kernels_per_tick": launched / ticks if busy else None,
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def log_profile(tag: str, prof: dict) -> None:
+    if prof["device_ms_per_tick"] is None:
+        log(f"{tag} profile ({prof['kv_dtype']} pool): the profiler "
+            f"recorded no device time (not measured)")
+        return
+    log(f"{tag} profile of {prof['ticks']} ticks after "
+        f"{prof['after_ticks']} ({prof['kv_dtype']} pool): wall "
+        f"{prof['wall_ms_per_tick']:.2f} ms/tick, device busy "
+        f"{prof['device_ms_per_tick']:.2f} ms/tick (idle share <= "
+        f"{prof['idle_share']:.3f}), {prof['device_kernels_per_tick']:.0f} "
+        f"device kernels/tick, paged kernel "
+        f"{prof['paged_kernel_ms_per_tick']:.3f} ms/tick; top: "
+        + "; ".join(f"{k[:60]} {v:.3f}" for k, v in prof["top"]))
 
 
 def first_layers(cfg, params, n: int):
@@ -1531,7 +1750,8 @@ def first_layers(cfg, params, n: int):
 def serve_counted(engine, reqs) -> dict:
     """Submit ``reqs`` to ``engine`` and tick it to the end, recording
     the tick at which each request's first token lands (TTFT in ticks;
-    its TTFT in ms is the request's own stamps, all submitted at once)."""
+    its TTFT in ms is the request's own stamps, all submitted at once)
+    and the most requests admitted at once."""
     import torch
     from repro_torch.serving import Request
 
@@ -1542,10 +1762,11 @@ def serve_counted(engine, reqs) -> dict:
     t0 = time.perf_counter()
     for r in objs:
         engine.submit(r)
-    ticks, first = 0, {}
+    ticks, first, peak = 0, {}, 0
     while True:
         stepped = engine.step()
         ticks += stepped
+        peak = max(peak, sum(s.active for s in engine.slots))
         for r in objs:
             if r.generated and r.rid not in first:
                 first[r.rid] = ticks
@@ -1559,6 +1780,7 @@ def serve_counted(engine, reqs) -> dict:
             "ms_per_tick": wall / ticks * 1e3,
             "ttft_ticks": [first[r.rid] for r in objs],
             "ttft_ms": [r.ttft_s * 1e3 for r in objs],
+            "peak_admitted": peak,
             "generated": [list(r.generated) for r in objs]}
 
 
@@ -1769,16 +1991,7 @@ def phase_full(card: str) -> dict:
         raise AssertionError("full width: token id out of range")
     prof = profile_ticks(model, params, reqs, B=B, max_seq=max_seq, T=T,
                          pool_blocks=pool_blocks)
-    if prof["device_ms_per_tick"] is None:
-        log("[full] profile: the profiler recorded no device time "
-            "(not measured)")
-    else:
-        log(f"[full] profile of {prof['ticks']} ticks after "
-            f"{prof['after_ticks']}: wall {prof['wall_ms_per_tick']:.2f} "
-            f"ms/tick, device busy {prof['device_ms_per_tick']:.2f} ms/tick "
-            f"(idle share <= {prof['idle_share']:.3f}), paged kernel "
-            f"{prof['paged_kernel_ms_per_tick']:.3f} ms/tick; top: "
-            + "; ".join(f"{k[:60]} {v:.3f}" for k, v in prof["top"]))
+    log_profile("[full]", prof)
     res = {
         "card": card, "batch": B, "max_seq": max_seq, "requests": n_req,
         "prompt_lens": sorted(len(p) for p, _ in reqs), "new_tokens": 32,
@@ -1803,6 +2016,10 @@ def phase_full(card: str) -> dict:
                                  prestaged_tokens=prestaged, **geo)
     res["spec"] = run_spec(model, params, reqs,
                            chunked_tokens=res["chunked"]["generated"], **geo)
+    torch.cuda.empty_cache()
+    res["narrow"] = phase_narrow(model, params, cut_cfg, cut_params, reqs,
+                                 prestaged_tokens=prestaged,
+                                 bf16_ms_per_tick=res["ms_per_tick"], **geo)
     return res
 
 
@@ -1957,6 +2174,320 @@ def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
         f"{same}/{total}; launches B2 {b2} = {L} x {b2 // L} verify "
         f"dispatches, B1 {b1}; peak {out['peak_bytes'] / 2**30:.2f} GiB")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5f: qwen3-8b at full width served from int8 and fp8 pools
+# ---------------------------------------------------------------------------
+
+# 5f: the teacher-forced int8 kernel step against the same step through
+# the plain version (max |dlogit| / max |logit|).  At 2 layers both read
+# the same dequantized bf16 values and differ in reduction order only, as
+# phase 5a's kernel and plain steps do.  At 36 layers random weights
+# amplify that one-ulp noise layer by layer (C6), so there the bound
+# only catches a broken scale or rounding site, which moves logits by
+# their own scale.
+NARROW_TF_TOL = {"2": 2e-2, "36": 0.5}
+
+
+def teacher_forced_quant(model, params, *, kvd="int8", B=8, max_seq=1024,
+                         T=16, ticks=8, seed=0) -> dict:
+    """The narrow kernel decode step against the same step with B1's
+    plain version in its place, fed the same tokens over the same random
+    KV prefix quantized per block (a different length per slot); logits
+    compared every tick."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.models import attention
+    from repro_torch.serving import Request, kvquant
+    from repro_torch.serving.paged import PagedCacheManager
+
+    cfg, dev = model.cfg, model.device
+    r = np.random.default_rng(seed)
+    prefix = r.integers(1, max_seq - ticks, B)
+    kern, plain = mgrs = [
+        PagedCacheManager(model, B, max_seq, block_size=T, kv_dtype=kvd)
+        for _ in range(2)]
+    for mgr in mgrs:
+        for b in range(B):
+            mgr.admit_slot(b, Request(prompt=[1] * int(prefix[b]),
+                                      max_new_tokens=ticks))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for b in range(B):
+        for j in range(-(-int(prefix[b]) // T)):
+            row = int(kern.tables[b, j])
+            for name in ("k", "v"):
+                blk = torch.randn(kern.cache["pool"][name][:, row].shape,
+                                  generator=g, device=dev)
+                sc = kvquant.block_scale(blk, (1, 3), kvd)
+                words = kvquant.as_bytes(kvquant.quantize(blk, sc, kvd))
+                for mgr in mgrs:
+                    kvquant.as_bytes(mgr.cache["pool"][name])[:, row] = words
+                    mgr.cache["scale"][name][:, row] = sc[:, 0, :, 0]
+    (tables,) = kern.step_extras()
+    rel, agree = 0.0, 0
+    for t in range(ticks):
+        toks = torch.tensor(r.integers(1, cfg.vocab, (B, 1)), device=dev)
+        pos = torch.tensor(prefix + t, device=dev)
+        lk = model.paged_decode_step(params, kern.cache["pool"], tables, toks,
+                                     pos, scales=kern.cache["scale"],
+                                     kv_dtype=kvd)[0]
+        kernel_fn = attention.paged_attention
+        attention.paged_attention = ref.paged_attention_ref
+        try:
+            lp = model.paged_decode_step(
+                params, plain.cache["pool"], tables, toks, pos,
+                scales=plain.cache["scale"], kv_dtype=kvd)[0]
+        finally:
+            attention.paged_attention = kernel_fn
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            raise AssertionError(f"5f {kvd}: non-finite logits")
+        rel = max(rel, _rel(lk, lp))
+        agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    return {"layers": cfg.n_layers, "kv_dtype": kvd, "ticks": ticks,
+            "batch": B, "prefix": prefix.tolist(),
+            "max_rel_logit_diff_kernel_vs_plain": rel,
+            "argmax_agree": agree, "argmax_total": ticks * B}
+
+
+def smoke_card_vs_cpu(kvd: str) -> dict:
+    """Smoke-width qwen3-8b (f32 compute) served at O6-kernel with
+    chunked prefill 3 from a ``kvd`` pool, on the card and on the CPU
+    from the same weights: the card's tokens within the dtype's tolerance
+    contract of the CPU's (the CPU runs B1/B2's plain versions)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.models import get_model
+    from repro_torch.serving import DecodeEngine, kvquant
+    from repro_torch.tree import map_tree
+
+    cfg = dataclasses.replace(get_smoke("qwen3-8b"), compute_dtype="float32")
+    params = get_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    mix = [(rng.integers(1, cfg.vocab, int(rng.integers(1, 12))).tolist(),
+            int(rng.integers(1, 8))) for _ in range(10)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = DecodeEngine(
+            get_model(cfg, device=device),
+            map_tree(lambda t: t.to(device), params), batch_size=4,
+            max_seq=32, config=BestEffortConfig(
+                level=OptLevel.O6, paged_attn="kernel", kv_dtype=kvd,
+                kv_block_size=4, kv_pool_blocks=20, prefill_chunk=3))
+        out[device] = drive(eng, mix)
+    agreement = kvquant.assert_tokens_match(
+        out["cpu"], out["cuda"], kvquant.tolerance_contract(kvd),
+        f"5f smoke {kvd} card vs cpu")
+    return {"kv_dtype": kvd, "agreement": agreement,
+            "tokens": sum(map(len, out["cuda"]))}
+
+
+def phase_narrow(model, params, cut_cfg, cut_params, reqs, *,
+                 prestaged_tokens, bf16_ms_per_tick, B, max_seq, T,
+                 pool_blocks) -> dict:
+    """Phase 5f: qwen3-8b at full width served at O6-kernel from int8 and
+    fp8 pools holding the bytes of run (b)'s bf16 pool (so about twice
+    its block rows): (b) the same 8 requests prestaged at batch 8 through
+    ``serve_demo``, B1 launches = layers x ticks; the same at batch 16
+    with 16 requests beside a bf16 pool of run (b)'s size, to show the
+    requests each admits at once; on int8, (d) chunked prefill at 64 and
+    (e) O7 self-draft K=4; a profile of int8 ticks; the teacher-forced
+    int8 kernel step against its plain version; and the smoke width on
+    the card against the CPU.  Token agreement with the bf16 runs is
+    reported, not gated: 36 random layers amplify one ulp (C6)."""
+    import torch
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.launch.serve import demo_requests, serve_demo
+    from repro_torch.models import get_model
+    from repro_torch.serving import DecodeEngine, kvquant
+    from repro_torch.serving.paged import BlockPagingPlan
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    res = {"teacher_forced": {}}
+    for n, (m, p) in (("2", (get_model(cut_cfg), cut_params)),
+                      ("36", (model, params))):
+        tf = teacher_forced_quant(m, p, B=B, max_seq=max_seq, T=T)
+        res["teacher_forced"][n] = tf
+        log(f"[full] 5f teacher-forced int8 kernel step vs plain, {n} "
+            f"layers, {tf['ticks']} ticks (prefixes {tf['prefix']}): max "
+            f"|dlogit| / max |logit| "
+            f"{tf['max_rel_logit_diff_kernel_vs_plain']:.3e} (bound "
+            f"{NARROW_TF_TOL[n]}); argmax agree {tf['argmax_agree']}/"
+            f"{tf['argmax_total']}")
+        if tf["max_rel_logit_diff_kernel_vs_plain"] > NARROW_TF_TOL[n]:
+            raise AssertionError(f"5f: the int8 kernel step drifts from its "
+                                 f"plain version at {n} layers: {tf}")
+    torch.cuda.empty_cache()
+
+    # Pool rows of equal bytes: the bf16 pool of run (b), pool_blocks + 1
+    # rows (the NULL block among them), against narrow rows of half the
+    # words plus their scales.
+    bf16 = BlockPagingPlan(model, B, max_seq, T, pool_blocks).geometry
+    plan = BlockPagingPlan(model, B, max_seq, T, pool_blocks,
+                           kv_dtype="int8")
+    row_bytes = T * plan.token_bytes + plan.scale_bytes_per_block
+    narrow_blocks = bf16["pool_bytes"] // row_bytes - 1
+    kw = dict(seed=0, prompt_len=(16, 257), max_new=(32, 33))
+    reqs16 = demo_requests(cfg, 16, **kw)
+    if reqs16[:len(reqs)] != reqs:
+        raise AssertionError("5f: the 16 requests do not extend run (b)'s")
+
+    def count(run, fn, *a, **k):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = fn(*a, **k)
+        out["launches"] = {"paged_attention": ops.paged_attention.launches,
+                           "paged_prefill_attention":
+                               ops.paged_prefill_attention.launches}
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        no_training_kernels(run)
+        return out
+
+    def engine(kvd, batch, blocks, level=OptLevel.O6, eng_kw=None,
+               **cfg_kw):
+        return DecodeEngine(model, params, batch_size=batch, max_seq=max_seq,
+                            config=BestEffortConfig(
+                                level=level, paged_attn="kernel",
+                                kv_block_size=T, kv_pool_blocks=blocks,
+                                kv_dtype=kvd, **cfg_kw), **(eng_kw or {}))
+
+    runs = {}
+    for kvd in ("int8", "fp8"):
+        out = count(f"5f (b) {kvd}", serve_demo, cfg, batch_size=B,
+                    max_seq=max_seq, n_requests=len(reqs), level=OptLevel.O6,
+                    paged_attn="kernel", kv_block_size=T,
+                    kv_pool_blocks=narrow_blocks, kv_dtype=kvd,
+                    params=params, **kw)
+        fin = sorted((r.rid, r.generated) for r in out.pop("finished"))
+        out["generated"] = [g for _, g in fin]
+        b1, b2 = (out["launches"][k] for k in ("paged_attention",
+                                               "paged_prefill_attention"))
+        if out["paged_attn"] != "kernel" or out["kv_dtype"] != kvd:
+            raise AssertionError(f"5f (b) {kvd}: served {out['paged_attn']} "
+                                 f"from {out['kv_dtype']}")
+        if b1 != L * out["ticks"] or b2:
+            raise AssertionError(f"5f (b) {kvd}: launches B1 {b1} (want {L} "
+                                 f"x {out['ticks']} ticks), B2 {b2} (want 0)")
+        if any(len(g) != 32 for g in out["generated"]):
+            raise AssertionError(f"5f (b) {kvd}: not every request got 32 "
+                                 f"tokens")
+        out.update(ms_per_tick=out["wall_s"] / out["ticks"] * 1e3,
+                   equal_to_bf16=_same_tokens(out["generated"],
+                                              prestaged_tokens),
+                   agreement_with_bf16=kvquant.token_agreement(
+                       prestaged_tokens, out["generated"]))
+        runs[f"b {kvd}"] = out
+        log(f"[full] 5f (b) {kvd} pool, {len(reqs)} requests at batch {B}: "
+            f"{out['tokens']} tokens in {out['ticks']} ticks / "
+            f"{out['wall_s']:.2f} s = {out['tok_per_s']:.1f} tok/s "
+            f"({out['ms_per_tick']:.2f} ms/tick; bf16 (b) "
+            f"{bf16_ms_per_tick:.2f} in this run); pool "
+            f"{out['pool']['pool_rows']} rows ({out['pool']['pool_mb']:.1f} "
+            f"MiB; bf16 {bf16['pool_rows']} rows, {bf16['pool_mb']:.1f} MiB), "
+            f"{out['pool']['scale_bytes_per_block']} B of scales a row; B1 "
+            f"launches {b1} = {L} x {out['ticks']}; greedy tokens equal to "
+            f"bf16 (b)'s {out['equal_to_bf16'][0]}/{out['equal_to_bf16'][1]}, "
+            f"prefix agreement {out['agreement_with_bf16']:.3f}; peak "
+            f"{out['peak_bytes'] / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+
+    for kvd, blocks in (("bf16", pool_blocks), ("int8", narrow_blocks),
+                        ("fp8", narrow_blocks)):
+        eng = engine(kvd, 2 * B, blocks)
+        out = count(f"5f batch {2 * B} {kvd}", serve_counted, eng, reqs16)
+        out["pool"] = eng.cache_mgr.geometry
+        if out["launches"]["paged_attention"] != L * out["dispatches"]:
+            raise AssertionError(f"5f batch {2 * B} {kvd}: B1 launches "
+                                 f"{out['launches']} vs {out['dispatches']} "
+                                 f"dispatches")
+        if any(len(g) != n for g, (_, n) in zip(out["generated"], reqs16)):
+            raise AssertionError(f"5f batch {2 * B} {kvd}: not every "
+                                 f"request got its tokens")
+        runs[f"batch{2 * B} {kvd}"] = out
+        log(f"[full] 5f {len(reqs16)} requests at batch {2 * B} from a "
+            f"{kvd} pool of {out['pool']['pool_rows']} rows "
+            f"({out['pool']['pool_mb']:.1f} MiB): at most "
+            f"{out['peak_admitted']} admitted at once; {out['tokens']} "
+            f"tokens in {out['ticks']} ticks / {out['wall_s']:.2f} s = "
+            f"{out['tok_per_s']:.1f} tok/s ({out['ms_per_tick']:.2f} "
+            f"ms/tick); peak {out['peak_bytes'] / 2**30:.2f} GiB")
+        del eng
+        torch.cuda.empty_cache()
+
+    C = 64
+    eng = engine("int8", B, narrow_blocks, prefill_chunk=C)
+    out = count("5f (d) int8", serve_counted, eng, reqs)
+    chunks = sum(-(-len(p) // C) for p, _ in reqs)
+    b1, b2 = (out["launches"][k] for k in ("paged_attention",
+                                           "paged_prefill_attention"))
+    if eng.prefill_mode != "chunked" or b2 != L * chunks \
+            or b1 != L * out["dispatches"]:
+        raise AssertionError(f"5f (d) int8: {eng.prefill_mode}, launches B2 "
+                             f"{b2} (want {L} x {chunks}), B1 {b1} (want {L} "
+                             f"x {out['dispatches']})")
+    out.update(chunk=C, chunk_dispatches=chunks,
+               equal_to_bf16_prestaged=_same_tokens(out["generated"],
+                                                    prestaged_tokens))
+    runs["d int8"] = out
+    log(f"[full] 5f (d) int8 chunked prefill C={C}: {out['tokens']} tokens "
+        f"in {out['ticks']} ticks / {out['wall_s']:.2f} s = "
+        f"{out['tok_per_s']:.1f} tok/s ({out['ms_per_tick']:.2f} ms/tick); "
+        f"TTFT ticks {out['ttft_ticks']}; launches B2 {b2} = {L} x {chunks} "
+        f"chunks, B1 {b1} = {L} x {out['dispatches']}; greedy tokens equal "
+        f"to bf16 (b)'s {out['equal_to_bf16_prestaged'][0]}/"
+        f"{out['equal_to_bf16_prestaged'][1]}")
+    del eng
+    torch.cuda.empty_cache()
+
+    K = 4
+    eng = engine("int8", B, narrow_blocks, level=OptLevel.O7, draft_k=K,
+                 eng_kw=dict(draft_model=model, draft_params=params))
+    if eng.spec_mode != "draft":
+        raise AssertionError(f"5f (e) int8: speculation {eng.spec_mode}")
+    out = count("5f (e) int8", serve_counted, eng, reqs)
+    b1, b2 = (out["launches"][k] for k in ("paged_attention",
+                                           "paged_prefill_attention"))
+    if b2 == 0 or b1 % L or b2 % L \
+            or b1 // L + b2 // L != out["dispatches"]:
+        raise AssertionError(f"5f (e) int8: launches B2 {b2}, B1 {b1} vs "
+                             f"{out['dispatches']} dispatches")
+    out.update(spec=eng.spec_stats, draft_k=K,
+               equal_to_bf16_prestaged=_same_tokens(out["generated"],
+                                                    prestaged_tokens))
+    runs["e int8"] = out
+    st = eng.spec_stats
+    log(f"[full] 5f (e) int8 O7 self-draft K={K}: accept_rate "
+        f"{st['accept_rate']:.4f}, {st['eff_tok_per_step']:.3f} tokens per "
+        f"window, {out['tokens']} tokens in {out['ticks']} ticks / "
+        f"{out['wall_s']:.2f} s = {out['tok_per_s']:.1f} tok/s "
+        f"({out['ms_per_tick']:.2f} ms/tick); launches B2 {b2} = {L} x "
+        f"{b2 // L} verify dispatches, B1 {b1}")
+    del eng
+    torch.cuda.empty_cache()
+
+    res["profile"] = profile_ticks(model, params, reqs, B=B, max_seq=max_seq,
+                                   T=T, pool_blocks=narrow_blocks,
+                                   kv_dtype="int8")
+    log_profile("[full] 5f", res["profile"])
+    res["smoke"] = [smoke_card_vs_cpu(kvd) for kvd in ("int8", "fp8")]
+    for sm in res["smoke"]:
+        log(f"[full] 5f smoke width {sm['kv_dtype']}, O6-kernel chunk 3: "
+            f"{sm['tokens']} tokens on the card, prefix agreement with the "
+            f"CPU {sm['agreement']:.3f} (contract floor "
+            f"{kvquant.tolerance_contract(sm['kv_dtype'])['min_agreement']})")
+    for out in runs.values():
+        out.pop("generated", None)
+    res.update(runs=runs, narrow_blocks=narrow_blocks,
+               bf16_pool=bf16, requests16=len(reqs16))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2489,6 +3020,7 @@ def main() -> int:
     b1, b1_main = phase_kernel()
     b2 = phase_prefill_kernel(b1_main)
     del b1_main
+    b1q, b2q = phase_quant_kernel()
     b3 = phase_flash_kernel()
     b3["widths"] = phase_flash_widths()
     b4 = phase_wkv_kernel()
@@ -2512,6 +3044,16 @@ def main() -> int:
         k["launches_by_run"] = {run: n[k["name"]] for run, n in runs.items()}
     b1["launches"] = runs["b"]["paged_attention"]
     b2["launches"] = runs["d"]["paged_prefill_attention"]
+    # The quantized branch on its main path: phase 5f's narrow runs (not
+    # its bf16 batch-16 run), B1q in the int8 run (b), B2q in the int8
+    # run (d).
+    narrow = {run: n for run, n in full["narrow"]["runs"].items()
+              if "bf16" not in run}
+    for k, wrapper, main_run in ((b1q, "paged_attention", "b int8"),
+                                 (b2q, "paged_prefill_attention", "d int8")):
+        k["launches_by_run"] = {run: n["launches"][wrapper]
+                                for run, n in narrow.items()}
+        k["launches"] = k["launches_by_run"][main_run]
     # B3 on its main path: phase 6's train() run.
     b3["launches"] = trained["launches"]["flash_attention"]
     b3["launches_by_run"] = {"train": b3["launches"]}
@@ -2525,7 +3067,7 @@ def main() -> int:
     for k, wrapper in ((b6, "matmul_tiled"), (b7, "matmul_whole")):
         k["launches"] = paper["launches"][wrapper]
         k["launches_by_run"] = {"paper ladder": k["launches"]}
-    kerns = [b1, b2, b3, b4, b5, b6, b7]
+    kerns = [b1, b2, b1q, b2q, b3, b4, b5, b6, b7]
 
     result = {"card": card, "kernels": kerns, "ladder": ladder,
               "full": full, "train": trained, "smoke_train": smoke_trained,

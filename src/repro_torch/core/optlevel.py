@@ -47,8 +47,6 @@ STEP_ORDER = (
 # OptLevel n enables LADDER[:n].
 LADDER = STEP_ORDER + (Step.PAGED_SCRATCHPAD, Step.SPECULATIVE)
 
-KV_DTYPES = ("bf16", "int8", "fp8")
-
 
 class OptLevel(enum.IntEnum):
     O0 = 0
@@ -97,6 +95,8 @@ class BestEffortConfig:
     kv_dtype: str = "bf16"
 
     def __post_init__(self):
+        # Imported here: ``serving`` imports this module.
+        from repro_torch.serving.kvquant import KV_DTYPES
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {self.kv_dtype!r}; "
                              f"choices: {KV_DTYPES}")

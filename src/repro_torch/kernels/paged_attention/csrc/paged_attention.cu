@@ -11,7 +11,9 @@
 // and computes what they compute, not block by block:
 //
 //   q       (B, Q, H, D)    bf16 or f32 (the compute dtype dt); B1: Q = 1
-//   k/v pool (R, T, KV, D)  bf16 or f32, row 0 the NULL block
+//   k/v pool (R, T, KV, D)  f32, bf16, int8 or fp8 e4m3, row 0 the NULL
+//                           block
+//   k/v scale (R, KV) f32   narrow pools only: one scale per (row, head)
 //   tables  (B, nb) int32   physical pool row of each logical block
 //   lengths (B,) int32      valid positions per slot (start + Q)
 //   out     (B, Q, H, D)    dt
@@ -52,6 +54,16 @@
 // expf (not __expf) keeps the kernel and the plain version within
 // reduction-order noise of each other.
 //
+// Narrow pools (int8 or fp8 e4m3 words, the quantized branch of the
+// Pallas kernels: _dequant, the ks/vs operands of _scores and the
+// quantized=True bodies) differ only in staging: each 16-byte load
+// brings 16 one-byte words, each is widened exactly to f32, multiplied
+// in f32 by its block's (row, kv head) scale and rounded once to dt —
+// serving/kvquant.dequantize's expression — and the tile holds that
+// value as f32.  The chunk's scales are read once per pool block, beside
+// its table entries.  Everything after staging is the wide kernel, so a
+// narrow pool gives exactly what its dequantized bf16 pool gives.
+//
 // Tiles are staged with 16-byte loads, all of a thread's loads issued
 // before any is used.  Work split inside the block: one thread per
 // (row, position) for the dot products (4 partial sums for ILP, tile rows
@@ -61,7 +73,8 @@
 //
 // Bound: the HBM bytes of the K/V positions attended.  At qwen3-8b width
 // that is 36 layers x 2 (K, V) x 8 kv heads x 128 x 2 B = 147 KB per
-// cached token per decode tick, read against 3.35 TB/s.  Known gaps of
+// cached token per decode tick (74 KB from a 1-byte pool, plus 64 B of
+// scales per 16-token block and layer), read against 3.35 TB/s.  Known gaps of
 // this design, for later work: K is read twice (once per pass), and each
 // row tile of a prefill chunk reads the slot's prefix again (32 tiles per
 // kv head for a 64-token chunk at qwen3-8b); there is no split of a long
@@ -72,9 +85,12 @@
 // products run on CUDA cores (no wgmma over the query rows).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -126,37 +142,58 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Widen one 16-byte load to floats: 8 bf16 (a bf16 is the top half of
-// the float with the same bits) or 4 f32.
-template <typename T> __device__ __forceinline__ void unpack(const uint4& r,
-                                                             float* dst);
-template <> __device__ __forceinline__ void unpack<float>(const uint4& r,
-                                                          float* dst) {
-  dst[0] = __uint_as_float(r.x);
-  dst[1] = __uint_as_float(r.y);
-  dst[2] = __uint_as_float(r.z);
-  dst[3] = __uint_as_float(r.w);
+// One 1-byte pool word, widened exactly to f32.
+template <typename KVT> __device__ __forceinline__ float narrow_to_f32(
+    unsigned byte);
+template <> __device__ __forceinline__ float narrow_to_f32<int8_t>(
+    unsigned byte) {
+  return static_cast<float>(static_cast<int8_t>(byte));
 }
-template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(
-    const uint4& r, float* dst) {
+template <> __device__ __forceinline__ float narrow_to_f32<__nv_fp8_e4m3>(
+    unsigned byte) {
+  __nv_fp8_e4m3 w;
+  w.__x = static_cast<__nv_fp8_storage_t>(byte);
+  return static_cast<float>(w);
+}
+
+// Widen one 16-byte load to floats: 8 bf16 (a bf16 is the top half of
+// the float with the same bits) or 4 f32; or dequantize 16 one-byte
+// words (little-endian: word w[k]'s byte j is element 4k + j) with the
+// block's scale s: f32 product, one round to the compute dtype QT.
+template <typename QT, typename KVT>
+__device__ __forceinline__ void unpack(const uint4& r, float s, float* dst) {
   const unsigned w[4] = {r.x, r.y, r.z, r.w};
+  if constexpr (std::is_same_v<KVT, float>) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    dst[2 * k] = __uint_as_float(w[k] << 16);
-    dst[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    for (int k = 0; k < 4; ++k) dst[k] = __uint_as_float(w[k]);
+  } else if constexpr (std::is_same_v<KVT, __nv_bfloat16>) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      dst[2 * k] = __uint_as_float(w[k] << 16);
+      dst[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dst[4 * k + j] = round_to<QT>(
+            narrow_to_f32<KVT>((w[k] >> (8 * j)) & 0xffu) * s);
+    }
   }
 }
 
 // Stage the chunk's nvalid rows of one pool (K or V) for kv head h into
-// tile (row stride D + 1); rows_s holds the chunk's physical pool rows.
-// Each thread first issues all its 16-byte loads (up to kLoads), then
-// converts and stores them, so the loads' latencies overlap instead of
-// adding up.  The wrapper guarantees D * sizeof(KVT) % 16 == 0 and a
-// 16-byte aligned pool.
-template <typename KVT>
+// tile (row stride D + 1); rows_s holds the chunk's physical pool rows
+// and, for a narrow pool, scale_s their scales for head h.  Each thread
+// first issues all its 16-byte loads (up to kLoads), then converts and
+// stores them, so the loads' latencies overlap instead of adding up.
+// The wrapper guarantees D * sizeof(KVT) % 16 == 0 and a 16-byte
+// aligned pool.
+template <typename QT, typename KVT>
 __device__ __forceinline__ void stage_tile(
-    float* tile, const KVT* __restrict__ pool, const int* rows_s, int nvalid,
-    int h, int KV, int D, int T) {
+    float* tile, const KVT* __restrict__ pool, const int* rows_s,
+    const float* scale_s, int nvalid, int h, int KV, int D, int T) {
   constexpr int kVec = 16 / sizeof(KVT);   // elements per 16-byte load
   const int per_row = D / kVec;
   const int n = nvalid * per_row;
@@ -179,7 +216,9 @@ __device__ __forceinline__ void stage_tile(
       const int v = base + u * kThreads + threadIdx.x;
       if (v < n) {
         const int t = v / per_row;
-        unpack<KVT>(regs[u], tile + t * (D + 1) + (v - t * per_row) * kVec);
+        const float sc = sizeof(KVT) == 1 ? scale_s[t / T] : 1.f;
+        unpack<QT, KVT>(regs[u], sc,
+                        tile + t * (D + 1) + (v - t * per_row) * kVec);
       }
     }
   }
@@ -188,7 +227,8 @@ __device__ __forceinline__ void stage_tile(
 template <typename QT, typename KVT>
 __global__ void __launch_bounds__(kThreads) paged_rows_kernel(
     const QT* __restrict__ q, const KVT* __restrict__ k_pool,
-    const KVT* __restrict__ v_pool, const int* __restrict__ tables,
+    const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ lengths, QT* __restrict__ out, int Q, int H,
     int KV, int D, int T, int nb, int C, int R, float scale) {
   const int b = blockIdx.x;
@@ -209,6 +249,9 @@ __global__ void __launch_bounds__(kThreads) paged_rows_kernel(
   float* l_s = m_s + R;         // (R,) running denominator
   int* lim_s = reinterpret_cast<int*>(l_s + R);  // (R,) row limits
   int* rows_s = lim_s + R;                       // (C / T,) pool rows
+  // (C / T,) each: the rows' K and V scales for head h (narrow pools).
+  float* ks_s = reinterpret_cast<float*>(rows_s + C / T);
+  float* vs_s = ks_s + C / T;
 
   // Row j of the tile is g-major row r0 + j of kv head h: query head
   // h * G + r / Q at query position r % Q.  Its causal limit is
@@ -269,9 +312,17 @@ __global__ void __launch_bounds__(kThreads) paged_rows_kernel(
       // Every row of the tile attends the whole chunk (always so for
       // B1): the per-row limit checks below are then skipped.
       const bool whole = common - c0 >= nvalid;
-      if (tid < (nvalid + T - 1) / T) rows_s[tid] = tb[c0 / T + tid];
+      if (tid < (nvalid + T - 1) / T) {
+        const int row = tb[c0 / T + tid];
+        rows_s[tid] = row;
+        if (sizeof(KVT) == 1) {
+          const size_t si = static_cast<size_t>(row) * KV + h;
+          ks_s[tid] = k_scale[si];
+          vs_s[tid] = v_scale[si];
+        }
+      }
       __syncthreads();
-      stage_tile<KVT>(kv_s, k_pool, rows_s, nvalid, h, KV, D, T);
+      stage_tile<QT, KVT>(kv_s, k_pool, rows_s, ks_s, nvalid, h, KV, D, T);
       __syncthreads();
 
       // Scores: one thread per (row j, position t) inside the row's
@@ -327,7 +378,8 @@ __global__ void __launch_bounds__(kThreads) paged_rows_kernel(
           s_s[j * C + t] = round_to<QT>(p);
         }
         // K is no longer needed: stage the chunk's V rows in its place.
-        stage_tile<KVT>(kv_s, v_pool, rows_s, nvalid, h, KV, D, T);
+        stage_tile<QT, KVT>(kv_s, v_pool, rows_s, vs_s, nvalid, h, KV, D,
+                            T);
         __syncthreads();
         if (whole) {
           for (int t = 0; t < nvalid; ++t) {
@@ -373,20 +425,21 @@ inline int chunk_positions(int T) {
 
 template <typename QT, typename KVT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* tables, const int* lengths, void* out, int B, int Q,
-           int H, int KV, int D, int T, int nb, float scale,
-           cudaStream_t stream) {
+           const float* k_scale, const float* v_scale, const int* tables,
+           const int* lengths, void* out, int B, int Q, int H, int KV, int D,
+           int T, int nb, float scale, cudaStream_t stream) {
   if (B == 0 || KV == 0 || Q == 0) return 0;
   const int G = H / KV;
   // Rows per tile: as many as the register accumulator holds.
   const int R = min(G * Q, kThreads * kMaxPairs / D);
   if (R < 1 || (D * sizeof(KVT)) % 16 != 0 ||
       reinterpret_cast<size_t>(k_pool) % 16 != 0 ||
-      reinterpret_cast<size_t>(v_pool) % 16 != 0)
+      reinterpret_cast<size_t>(v_pool) % 16 != 0 ||
+      (sizeof(KVT) == 1) != (k_scale != nullptr && v_scale != nullptr))
     return cudaErrorInvalidValue;
   const int C = chunk_positions(T);
   const size_t smem = sizeof(float) * (R * D + C * (D + 1) + R * C + 2 * R) +
-                      sizeof(int) * (R + C / T);
+                      sizeof(int) * (R + C / T) + sizeof(float) * 2 * (C / T);
   cudaError_t err = cudaFuncSetAttribute(
       paged_rows_kernel<QT, KVT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -394,54 +447,81 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   dim3 grid(B, KV, (G * Q + R - 1) / R);
   paged_rows_kernel<QT, KVT><<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
-      static_cast<const KVT*>(v_pool), tables, lengths,
+      static_cast<const KVT*>(v_pool), k_scale, v_scale, tables, lengths,
       static_cast<QT*>(out), Q, H, KV, D, T, nb, C, R, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Pool kinds (the wrapper's ``kv_kind``).
+enum PoolKind { kF32 = 0, kBF16 = 1, kInt8 = 2, kE4M3 = 3 };
+
+template <typename QT>
+int dispatch_pool(const void* q, const void* k_pool, const void* v_pool,
+                  const float* ks, const float* vs, const int* tb,
+                  const int* ln, void* out, int B, int Q, int H, int KV,
+                  int D, int T, int nb, int kv_kind, float scale,
+                  cudaStream_t s) {
+  switch (kv_kind) {
+    case kF32:
+      return launch<QT, float>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q,
+                               H, KV, D, T, nb, scale, s);
+    case kBF16:
+      return launch<QT, __nv_bfloat16>(q, k_pool, v_pool, ks, vs, tb, ln,
+                                       out, B, Q, H, KV, D, T, nb, scale, s);
+    case kInt8:
+      return launch<QT, int8_t>(q, k_pool, v_pool, ks, vs, tb, ln, out, B,
+                                Q, H, KV, D, T, nb, scale, s);
+    case kE4M3:
+      return launch<QT, __nv_fp8_e4m3>(q, k_pool, v_pool, ks, vs, tb, ln,
+                                       out, B, Q, H, KV, D, T, nb, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
-             const void* tables, const void* lengths, void* out, int B,
-             int Q, int H, int KV, int D, int T, int nb, int q_bf16,
-             int kv_bf16, float scale, void* stream) {
+             const void* k_scale, const void* v_scale, const void* tables,
+             const void* lengths, void* out, int B, int Q, int H, int KV,
+             int D, int T, int nb, int q_bf16, int kv_kind, float scale,
+             void* stream) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_pool, v_pool, tb, ln, out, B, Q, H, KV, D, T, nb, scale, s);
   if (q_bf16)
-    return launch<__nv_bfloat16, float>(q, k_pool, v_pool, tb, ln, out, B,
-                                         Q, H, KV, D, T, nb, scale, s);
-  if (kv_bf16)
-    return launch<float, __nv_bfloat16>(q, k_pool, v_pool, tb, ln, out, B,
-                                         Q, H, KV, D, T, nb, scale, s);
-  return launch<float, float>(q, k_pool, v_pool, tb, ln, out, B, Q, H, KV,
-                              D, T, nb, scale, s);
+    return dispatch_pool<__nv_bfloat16>(q, k_pool, v_pool, ks, vs, tb, ln,
+                                        out, B, Q, H, KV, D, T, nb, kv_kind,
+                                        scale, s);
+  return dispatch_pool<float>(q, k_pool, v_pool, ks, vs, tb, ln, out, B, Q,
+                              H, KV, D, T, nb, kv_kind, scale, s);
 }
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes).  ``q_bf16`` / ``kv_bf16``
-// select bf16 (1) or f32 (0) for the query/output and the pool.  Each
-// returns cudaGetLastError() after the launch: 0 on success.
+// Plain C entry points (loaded with ctypes).  ``q_bf16`` selects bf16 (1)
+// or f32 (0) for the query and output; ``kv_kind`` the pool's words
+// (PoolKind: 0 f32, 1 bf16, 2 int8, 3 fp8 e4m3).  ``k_scale``/``v_scale``
+// are the (R, KV) f32 scales of a narrow pool and null for a wide one.
+// Each returns cudaGetLastError() after the launch: 0 on success.
 
 // B1: q and out (B, H, D), one query per slot, limit lengths[b].
 extern "C" int paged_attention_decode(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* tables, const void* lengths, void* out, int B, int H,
-    int KV, int D, int T, int nb, int q_bf16, int kv_bf16, float scale,
-    void* stream) {
-  return dispatch(q, k_pool, v_pool, tables, lengths, out, B, 1, H, KV, D,
-                  T, nb, q_bf16, kv_bf16, scale, stream);
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* lengths, void* out, int B, int H, int KV, int D, int T,
+    int nb, int q_bf16, int kv_kind, float scale, void* stream) {
+  return dispatch(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
+                  B, 1, H, KV, D, T, nb, q_bf16, kv_kind, scale, stream);
 }
 
 // B2: q and out (B, Q, H, D), Q queries per slot whose K/V are the last
 // Q of lengths[b] positions; query qi's limit is lengths[b] - (Q-1-qi).
 extern "C" int paged_attention_prefill(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* tables, const void* lengths, void* out, int B, int Q,
-    int H, int KV, int D, int T, int nb, int q_bf16, int kv_bf16,
-    float scale, void* stream) {
-  return dispatch(q, k_pool, v_pool, tables, lengths, out, B, Q, H, KV, D,
-                  T, nb, q_bf16, kv_bf16, scale, stream);
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* lengths, void* out, int B, int Q, int H, int KV, int D,
+    int T, int nb, int q_bf16, int kv_kind, float scale, void* stream) {
+  return dispatch(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
+                  B, Q, H, KV, D, T, nb, q_bf16, kv_kind, scale, stream);
 }

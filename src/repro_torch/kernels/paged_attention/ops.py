@@ -5,6 +5,8 @@
 the kernel takes and raise on anything else, then launch the CUDA kernel
 for CUDA tensors — no fallback — or run the plain version (``ref``) for
 CPU tensors.  Each kernel launch adds one to the wrapper's ``launches``.
+Both read wide pools (bf16, f32) and, with ``k_scale``/``v_scale``,
+narrow ones (int8, float8_e4m3fn): the quantized branch.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from repro_torch.kernels.paged_attention.ref import (
     kernel_scale, paged_attention_ref, paged_prefill_attention_ref)
 
 _DTYPES = (torch.bfloat16, torch.float32)
+_NARROW = (torch.int8, torch.float8_e4m3fn)
 _INTS = (torch.int32, torch.int64)
 # Shared memory a block may use on Hopper (227 KB), and the kernel's
 # (query row, dim) accumulator slots: 128 threads x 8 registers.
@@ -23,7 +26,34 @@ _SMEM_LIMIT = 232_448
 _MAX_RD = 1024
 
 
-def _check(q, k_pool, v_pool, tables, lengths):
+def _check_scales(k_pool, k_scale, v_scale):
+    """Scales come together, for narrow pools only: (R, KV) f32,
+    contiguous, on the pools' device."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    narrow = k_pool.dtype in _NARROW
+    if narrow != (k_scale is not None):
+        raise ValueError(f"a {k_pool.dtype} pool takes "
+                         f"{'k_scale/v_scale' if narrow else 'no scales'}")
+    if k_scale is None:
+        return
+    R, _T, KV, _D = k_pool.shape
+    want = (R, KV)
+    if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+        raise ValueError(f"scale shape mismatch: want {want}, got "
+                         f"k {tuple(k_scale.shape)}, v "
+                         f"{tuple(v_scale.shape)}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise ValueError(f"scales must be float32, got {k_scale.dtype}/"
+                         f"{v_scale.dtype}")
+    if not (k_scale.is_contiguous() and v_scale.is_contiguous()):
+        raise ValueError("scales must be contiguous")
+    if {k_scale.device, v_scale.device} != {k_pool.device}:
+        raise ValueError(f"scales on {k_scale.device}/{v_scale.device}, "
+                         f"pools on {k_pool.device}")
+
+
+def _check(q, k_pool, v_pool, tables, lengths, k_scale=None, v_scale=None):
     """Raise unless the kernel takes these operands; q is (B, Q, H, D)."""
     if q.dim() != 4 or k_pool.dim() != 4:
         raise ValueError(f"want q (B, [Q,] H, D) and pools (R, T, KV, D); "
@@ -39,10 +69,12 @@ def _check(q, k_pool, v_pool, tables, lengths):
         raise ValueError(f"tables/lengths shape mismatch: want (B, nb) and "
                          f"(B,) with B={B}, got {tuple(tables.shape)}, "
                          f"{tuple(lengths.shape)}")
-    if q.dtype not in _DTYPES or k_pool.dtype not in _DTYPES \
+    if q.dtype not in _DTYPES or k_pool.dtype not in _DTYPES + _NARROW \
             or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"dtypes: q {q.dtype}, pools {k_pool.dtype}/"
-                        f"{v_pool.dtype} (bf16 or f32, pools alike)")
+                        f"{v_pool.dtype} (q bf16 or f32; pools alike, "
+                        f"bf16, f32, int8 or float8_e4m3fn)")
+    _check_scales(k_pool, k_scale, v_scale)
     if tables.dtype not in _INTS or lengths.dtype not in _INTS:
         raise TypeError(f"tables/lengths must be integer, got "
                         f"{tables.dtype}/{lengths.dtype}")
@@ -51,7 +83,8 @@ def _check(q, k_pool, v_pool, tables, lengths):
         raise ValueError(f"operands on different devices: {devs}")
     if not all(t.is_contiguous() for t in (q, k_pool, v_pool)):
         raise ValueError("q and the pools must be contiguous")
-    # The kernel stages K/V rows with 16-byte loads.
+    # The kernel stages K/V rows with 16-byte loads: D a multiple of 16
+    # for 1-byte pools, of 8 for bf16, of 4 for f32.
     if (D * k_pool.element_size()) % 16 or any(
             t.data_ptr() % 16 for t in (k_pool, v_pool)):
         raise ValueError(f"pool rows must be 16-byte multiples on 16-byte "
@@ -62,33 +95,40 @@ def _check(q, k_pool, v_pool, tables, lengths):
         raise ValueError(f"head_dim {D} exceeds the kernel's {_MAX_RD} "
                          f"register accumulator slots per block")
     C = T * max(1, 64 // T)
-    smem = 4 * (R * D + C * (D + 1) + R * C + 2 * R) + 4 * (R + C // T)
+    smem = (4 * (R * D + C * (D + 1) + R * C + 2 * R) + 4 * (R + C // T)
+            + 8 * (C // T))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"R={R}, D={D}, T={T} need {smem} B of shared "
                          f"memory per block (limit {_SMEM_LIMIT})")
 
 
-def paged_attention(q, k_pool, v_pool, tables, lengths):
+def paged_attention(q, k_pool, v_pool, tables, lengths, *, k_scale=None,
+                    v_scale=None):
     """Decode attention off a paged KV block pool.
 
     q: (B, H, D) — one query token per slot, bf16 or f32.
     k_pool, v_pool: (R, T, KV, D) — the physical block pool (row 0 is the
-        NULL block; its contents are write-garbage by design).
+        NULL block; its contents are write-garbage by design): bf16 or
+        f32, or int8 / float8_e4m3fn with scales.
     tables: (B, nb) int — physical pool row of each logical block.
     lengths: (B,) int — valid positions per slot (the engine passes
         ``positions + 1``: the current token's K/V is already appended).
+    k_scale, v_scale: (R, KV) f32 — the per-(row, kv head) absmax scales
+        of a narrow pool, required with one and refused without; each
+        staged block is dequantized at the gather path's rounding site.
 
     Returns (B, H, D) in q's dtype.  Every block the table references
     inside ``lengths[b]`` must be a real pool row.
     """
     if q.dim() != 3:
         raise ValueError(f"want q (B, H, D), got {tuple(q.shape)}")
-    _check(q[:, None], k_pool, v_pool, tables, lengths)
+    _check(q[:, None], k_pool, v_pool, tables, lengths, k_scale, v_scale)
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, tables, lengths)
+        return paged_attention_ref(q, k_pool, v_pool, tables, lengths,
+                                   k_scale, v_scale)
     tables, lengths = _on_card(q, tables, lengths)
     out = torch.empty_like(q)
-    kernel.launch(q, k_pool, v_pool, tables, lengths, out,
+    kernel.launch(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
                   kernel_scale(q.shape[-1], q.dtype))
     paged_attention.launches += 1
     return out
@@ -97,28 +137,30 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
 paged_attention.launches = 0
 
 
-def paged_prefill_attention(q, k_pool, v_pool, tables, lengths):
+def paged_prefill_attention(q, k_pool, v_pool, tables, lengths, *,
+                            k_scale=None, v_scale=None):
     """Multi-query attention off a paged KV block pool: the chunked
     prefill and speculative-verify query mode.
 
     q: (B, Q, H, D) — Q consecutive query tokens per slot, bf16 or f32,
         causally masked: query ``qi`` attends positions ``< lengths[b] -
         (Q - 1 - qi)``, i.e. up to and including its own.
-    k_pool, v_pool, tables: as :func:`paged_attention`; the Q tokens'
-        K/V must already be appended at positions ``[start, start + Q)``.
+    k_pool, v_pool, tables, k_scale, v_scale: as
+        :func:`paged_attention`; the Q tokens' K/V must already be
+        appended at positions ``[start, start + Q)``.
     lengths: (B,) int — ``start + Q`` per slot.
 
     Returns (B, Q, H, D) in q's dtype.  Each row computes exactly what
     :func:`paged_attention` computes at that row's limit, bit for bit.
     """
-    _check(q, k_pool, v_pool, tables, lengths)
+    _check(q, k_pool, v_pool, tables, lengths, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, k_pool, v_pool, tables,
-                                           lengths)
+                                           lengths, k_scale, v_scale)
     tables, lengths = _on_card(q, tables, lengths)
     out = torch.empty_like(q)
-    kernel.launch_prefill(q, k_pool, v_pool, tables, lengths, out,
-                          kernel_scale(q.shape[-1], q.dtype))
+    kernel.launch_prefill(q, k_pool, v_pool, k_scale, v_scale, tables,
+                          lengths, out, kernel_scale(q.shape[-1], q.dtype))
     paged_prefill_attention.launches += 1
     return out
 

@@ -23,6 +23,14 @@ the same way: query ``qi`` of a slot attends positions ``idx < lengths -
 own limit, so nothing past a row's limit — not even a later query's
 freshly written K/V — reaches its sums.
 
+Narrow pools (int8 or float8_e4m3fn, with ``k_scale``/``v_scale`` of
+(R, KV) f32) are the reference's ``_dequant`` branch: each gathered
+block is widened exactly to f32, multiplied in f32 by its (row, kv head)
+scale and rounded once to q's dtype — the expression of
+``serving.kvquant.dequantize``, inlined so the kernel package imports
+nothing of serving.  Everything after is the wide pool's math, so a
+narrow pool gives what its pre-dequantized pool gives, bit for bit.
+
 The CPU tests hold both against the JAX kernels in interpret mode, and
 ``chip_smoke.py`` holds the CUDA kernel against them on the card.
 """
@@ -47,10 +55,24 @@ def _round(x, dtype):
     return x.to(dtype).float()
 
 
-def paged_attention_ref(q, k_pool, v_pool, tables, lengths):
+def _gathered(pool, scale, rows, shape, dt):
+    """The pool rows ``rows`` as f32, reshaped to ``shape`` (B, S, KV, D);
+    a narrow pool is dequantized with its (R, KV) ``scale`` and rounded
+    to ``dt`` first.  1-byte pools are gathered as bytes (float8 indexing
+    may be missing on CUDA)."""
+    if scale is None:
+        return pool.index_select(0, rows).reshape(shape).float()
+    g = pool.view(torch.uint8).index_select(0, rows).view(pool.dtype)
+    s = scale.index_select(0, rows)[:, None, :, None]
+    return _round(g.float() * s, dt).reshape(shape)
+
+
+def paged_attention_ref(q, k_pool, v_pool, tables, lengths, k_scale=None,
+                        v_scale=None):
     """q: (B, H, D); k_pool/v_pool: (R, T, KV, D); tables: (B, nb) int;
-    lengths: (B,) valid positions per slot.  Returns (B, H, D) in q's
-    dtype; a slot of length 0 gets zeros."""
+    lengths: (B,) valid positions per slot; k_scale/v_scale: (R, KV) f32
+    for a narrow pool, else None.  Returns (B, H, D) in q's dtype; a
+    slot of length 0 gets zeros."""
     B, H, D = q.shape
     _, T, KV, _ = k_pool.shape
     nb = tables.shape[1]
@@ -58,8 +80,8 @@ def paged_attention_ref(q, k_pool, v_pool, tables, lengths):
     dt = q.dtype
     S = nb * T
     rows = tables.reshape(-1).long()
-    k = k_pool.index_select(0, rows).reshape(B, S, KV, D).float()
-    v = v_pool.index_select(0, rows).reshape(B, S, KV, D).float()
+    k = _gathered(k_pool, k_scale, rows, (B, S, KV, D), dt)
+    v = _gathered(v_pool, v_scale, rows, (B, S, KV, D), dt)
     valid = (torch.arange(S, device=q.device)[None]
              < lengths.to(q.device)[:, None])                  # (B, S)
     v = torch.where(valid[:, :, None, None], v, 0.0)
@@ -77,7 +99,8 @@ def paged_attention_ref(q, k_pool, v_pool, tables, lengths):
     return o.reshape(B, H, D).to(dt)
 
 
-def paged_prefill_attention_ref(q, k_pool, v_pool, tables, lengths):
+def paged_prefill_attention_ref(q, k_pool, v_pool, tables, lengths,
+                                k_scale=None, v_scale=None):
     """q: (B, Q, H, D) — Q consecutive queries per slot whose K/V are the
     last Q of ``lengths[b]`` positions; the rest as
     :func:`paged_attention_ref`.  Returns (B, Q, H, D) in q's dtype; a
@@ -89,8 +112,8 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, tables, lengths):
     dt = q.dtype
     S = nb * T
     rows = tables.reshape(-1).long()
-    k = k_pool.index_select(0, rows).reshape(B, S, KV, D).float()
-    v = v_pool.index_select(0, rows).reshape(B, S, KV, D).float()
+    k = _gathered(k_pool, k_scale, rows, (B, S, KV, D), dt)
+    v = _gathered(v_pool, v_scale, rows, (B, S, KV, D), dt)
     qi = torch.arange(Q, device=q.device)
     limit = lengths.to(q.device).long()[:, None] - (Q - 1 - qi)[None]
     valid = (torch.arange(S, device=q.device)[None, None]

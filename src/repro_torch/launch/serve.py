@@ -10,8 +10,10 @@ on the CPU (the kernel path then uses the kernels' plain versions).
 ``--prefill-chunk N`` consumes prompts N tokens per tick; ``--level 7
 --draft smollm-360m`` decodes speculatively (the drafter must share the
 target's vocab at the scale served, so the pair works with ``--smoke``
-only).  Rungs and features outside the port (O0/O1, int8/fp8
-``--kv-dtype``) raise ``NotImplementedError``.
+only); ``--level 6 --kv-dtype int8`` (or ``fp8``) stores the paged pool
+in 1-byte words with one f32 scale per (block row, kv head), half the
+bytes a token.  The rungs outside the port (O0/O1) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -99,6 +101,9 @@ def serve_demo(cfg, *, batch_size: int, max_seq: int, n_requests: int,
         "paged_attn": engine.layout.attn_impl,
         "kv_dtype": kv_dtype,
         "pool": geometry,
+        "pool_mb": geometry["pool_mb"] if geometry else None,
+        "scale_bytes_per_block": (geometry["scale_bytes_per_block"]
+                                  if geometry else None),
         "prefill_mode": engine.prefill_mode,
         "spec_mode": engine.spec_mode,
         "spec": engine.spec_stats,
@@ -140,7 +145,8 @@ def main(argv=None):
                          "paged-decode kernel on the raw pool")
     ap.add_argument("--kv-dtype", default="bf16",
                     choices=("bf16", "int8", "fp8"),
-                    help="O6 pool stored dtype (only bf16 is ported)")
+                    help="O6 pool stored dtype: bf16, or int8 / fp8 (e4m3) "
+                         "words with per-block f32 scales")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: consume prompts in chunks of "
                          "this many tokens, one chunk per tick, "
@@ -177,6 +183,8 @@ def main(argv=None):
         print(f"[serve] req {r.rid}: prompt[{r.n_prompt}] -> "
               f"{r.generated}")
     attn = f"/{out['paged_attn']}" if out["paged_attn"] else ""
+    if out["kv_dtype"] != "bf16":
+        attn += f"/kv={out['kv_dtype']}"
     if args.prefill_chunk:
         attn += f"/prefill={out['prefill_mode']}({args.prefill_chunk})"
     if out["spec_mode"] == "draft":

@@ -5,12 +5,13 @@ a paged pool, for one token per slot (decode) or a window of C tokens
 per slot (chunked prefill, speculative verify).
 
 Port of ``repro/models/attention.py`` (``attn_defs``, ``attention`` for
-causal self-attention, ``decode_attention``, ``chunk_prefill_attention``
-and the bf16 branches of ``paged_decode_attention`` and
-``paged_chunk_prefill_attention``).  ``attention``'s rounding sites are
+causal self-attention, ``decode_attention``,
+``chunk_prefill_attention``, ``paged_decode_attention`` and
+``paged_chunk_prefill_attention``, on bf16 pools and on narrow int8 /
+fp8 pools with per-block scales).  ``attention``'s rounding sites are
 B3's (f32 scores and probabilities, one rounding of the output).  The
-serving functions' are the reference's as XLA compiles them: scores come out
-of the qk product rounded to the compute dtype, are multiplied in
+serving functions' are the reference's as XLA compiles them: scores come
+out of the qk product rounded to the compute dtype, are multiplied in
 float32 by the head-dim scale rounded to the compute dtype (JAX rounds
 the Python-float scale to bf16 as a weak type; XLA's excess precision
 then keeps the product in float32 although the source casts it back),
@@ -24,6 +25,14 @@ several rows may write one position; each such write carries the value
 of the row that owns the position (``_window_rows``), so which of them
 lands — undefined for repeated indices on CUDA — cannot matter, and a
 pad row can never overwrite a real row's K/V.
+
+Narrow pools re-quantize around every write (``_quant_block_write``):
+the blocks a write touches are dequantized, the new K/V written, the
+positions outside the slot's valid prefix zeroed, the scale re-derived
+and the blocks quantized again, all in place.  Writes of inactive slots
+and of window entries past the table horizon land in the NULL block and
+its scale row, which no length ever reaches, so which duplicate write
+lands there cannot matter.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_prefill_attention)
 from repro_torch.kernels.paged_attention.ref import kernel_scale
 from repro_torch.models.layers import PDef, rms_norm, rope
+from repro_torch.serving import kvquant
 
 NEG_INF = -1e30
 
@@ -199,27 +209,55 @@ def chunk_prefill_attention(params, x, cache, positions, *, n_heads, n_kv,
     return out, cache
 
 
+def _unpack_paged(kvs):
+    """(ck, cv, sk, sv) from the paged kv-leaf tuple: (k, v) pools, plus
+    their (R, KV) f32 scales for narrow pools (else None, None)."""
+    if len(kvs) == 2:
+        return kvs[0], kvs[1], None, None
+    return tuple(kvs)
+
+
+def _quant_block_write(pool, scale, rows, where, new, valid, kv_dtype, dt):
+    """The requant-on-append discipline for the pool blocks ``rows`` (any
+    index shape I), in place: dequantize them into a (*I, T, KV, dh)
+    window (the kernels' and the gather path's rounding site), write
+    ``new`` at the window index ``where``, zero the positions outside
+    ``valid`` so stale garbage never inflates the absmax, re-derive the
+    scale and quantize back.  ``pool`` (R, T, KV, dh) and ``scale``
+    (R, KV) are one layer's narrow pool and scales."""
+    raw = kvquant.as_bytes(pool)
+    lead = rows.dim()
+    blk = raw[rows].view(pool.dtype)
+    s = scale[rows].reshape(*rows.shape, 1, scale.shape[-1], 1)
+    wide = kvquant.dequantize(blk, s, dt)
+    wide[where] = new.to(dt)
+    wide = torch.where(valid, wide, 0)
+    s = kvquant.block_scale(wide, (lead, lead + 2), kv_dtype)
+    raw[rows] = kvquant.as_bytes(kvquant.quantize(wide, s, kv_dtype))
+    scale[rows] = s.reshape(*rows.shape, scale.shape[-1])
+
+
 def paged_decode_attention(params, x, kvs, tables, positions, *, n_heads,
                            n_kv, head_dim, qk_norm=False, rope_theta=1e4,
                            kv_dtype="bf16"):
     """Gather-free decode attention against a paged KV block pool.
 
     x: (B, 1, d); kvs: (k, v) pool leaves (R, T, KV, dh), row 0 the NULL
-    block; tables: (B, nb) int32 physical pool row per logical block;
-    positions: (B,) current index per slot.  The current token's K/V is
-    appended IN PLACE at ``tables[b, p // T]``, offset ``p % T`` (one
-    (KV, dh) vector per slot), then the paged-decode kernel attends the
-    slot's ``p + 1`` valid positions, reading only the blocks they span.
+    block — or (k, v, k_scale, v_scale) with (R, KV) f32 scales for a
+    narrow (int8 / fp8) pool; tables: (B, nb) int32 physical pool row
+    per logical block; positions: (B,) current index per slot.  The
+    current token's K/V is appended IN PLACE at ``tables[b, p // T]``,
+    offset ``p % T`` — on a narrow pool the slot's whole ACTIVE block is
+    re-quantized around the append (dequantize, write, zero the unwritten
+    tail, rescale) — then the paged-decode kernel attends the slot's
+    ``p + 1`` valid positions, reading only the blocks they span.
     Inactive slots point every table entry at the NULL block (write
     garbage by design); their outputs are discarded by the engine.
     Returns (out (B, 1, d), kvs).
     """
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r} pools are not ported yet (ROADMAP A9)")
     B = x.shape[0]
     dt = x.dtype
-    ck, cv = kvs
+    ck, cv, sk, sv = _unpack_paged(kvs)
     T = ck.shape[1]
     q, k, v = _project_qkv(params, x, positions[:, None], qk_norm=qk_norm,
                            rope_theta=rope_theta)
@@ -227,42 +265,77 @@ def paged_decode_attention(params, x, kvs, tables, positions, *, n_heads,
     pos = positions.long()
     row = tables[b_idx, pos // T].long()
     off = pos % T
-    ck[row, off] = k[:, 0].to(ck.dtype)                   # in place
-    cv[row, off] = v[:, 0].to(cv.dtype)
-    o = paged_attention(q[:, 0], ck, cv, tables,
-                        (positions + 1).to(torch.int32))
+    lengths = (positions + 1).to(torch.int32)
+    if sk is None:
+        ck[row, off] = k[:, 0].to(ck.dtype)               # in place
+        cv[row, off] = v[:, 0].to(cv.dtype)
+        o = paged_attention(q[:, 0], ck, cv, tables, lengths)
+    else:
+        valid = (torch.arange(T, device=x.device)[None]
+                 <= off[:, None])[..., None, None]        # (B, T, 1, 1)
+        for pool, scale, new in ((ck, sk, k), (cv, sv, v)):
+            _quant_block_write(pool, scale, row, (b_idx, off), new[:, 0],
+                               valid, kv_dtype, dt)
+        o = paged_attention(q[:, 0], ck, cv, tables, lengths, k_scale=sk,
+                            v_scale=sv)
     return _out_proj(o.to(dt), params["wo"])[:, None], kvs
 
 
 def paged_chunk_prefill_attention(params, x, kvs, tables, positions,
                                   lengths, *, n_heads, n_kv, head_dim,
                                   qk_norm=False, rope_theta=1e4,
-                                  kv_dtype="bf16"):
+                                  kv_dtype="bf16", start=None):
     """Multi-token attention straight off the paged block pool — the
     qlen > 1 sibling of :func:`paged_decode_attention`.
 
-    x: (B, C, d); kvs: (k, v) pool leaves (R, T, KV, dh); tables: (B, nb);
-    positions: (B, C) cache index per window token, clipped for the
-    padded tail (those writes go to in-reservation future positions or
-    the NULL block, both write-garbage-safe); lengths: (B,) UNCLIPPED
-    ``start + C``, so each real row's causal limit stays exact.  The
-    window's K/V are scattered into the pool through the tables in place,
-    then the multi-query paged kernel (B2) attends the whole prefix.
-    Returns (out (B, C, d), kvs).
+    x: (B, C, d); kvs: (k, v) pool leaves (R, T, KV, dh), or (k, v,
+    k_scale, v_scale) for a narrow pool; tables: (B, nb); positions:
+    (B, C) cache index per window token, clipped for the padded tail
+    (those writes go to in-reservation future positions or the NULL
+    block, both write-garbage-safe); lengths: (B,) UNCLIPPED ``start +
+    C``, so each real row's causal limit stays exact; ``start`` (B,)
+    anchors a narrow pool's requant window.  The window's K/V are
+    scattered into the pool through the tables in place — a narrow pool
+    re-quantizes the ``ceil(C / T) + 1`` blocks from ``start // T``
+    (entries past the table horizon redirected to the NULL block, never
+    clipped onto a real row) — then the multi-query paged kernel (B2)
+    attends the whole prefix.  Returns (out (B, C, d), kvs).
     """
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r} pools are not ported yet (ROADMAP A9)")
+    B, C, _ = x.shape
     dt = x.dtype
-    ck, cv = kvs
+    ck, cv, sk, sv = _unpack_paged(kvs)
     T = ck.shape[1]
+    nb = tables.shape[1]
     q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm,
                            rope_theta=rope_theta)
+    k, v = _window_rows(k, positions), _window_rows(v, positions)
     pos = positions.long()
-    rows = tables.long().gather(1, pos // T)               # (B, C)
-    offs = pos % T
-    ck[rows, offs] = _window_rows(k, positions).to(ck.dtype)   # in place
-    cv[rows, offs] = _window_rows(v, positions).to(cv.dtype)
+    if sk is None:
+        rows = tables.long().gather(1, pos // T)           # (B, C)
+        offs = pos % T
+        ck[rows, offs] = k.to(ck.dtype)                    # in place
+        cv[rows, offs] = v.to(cv.dtype)
+        o = paged_prefill_attention(q.contiguous(), ck, cv, tables,
+                                    lengths.to(torch.int32))
+        return _out_proj(o.to(dt), params["wo"]), kvs
+
+    from repro_torch.serving.paged import NULL_BLOCK
+
+    dev = x.device
+    nt = min((C - 1) // T + 2, nb)
+    jb_first = start.long() // T                          # (B,)
+    jbs = jb_first[:, None] + torch.arange(nt, device=dev)[None]  # (B, nt)
+    in_table = tables.long().gather(1, jbs.clamp(0, nb - 1))
+    rows = torch.where(jbs < nb, in_table, NULL_BLOCK)
+    bi = torch.arange(B, device=dev)[:, None]
+    wi = (pos // T - jb_first[:, None]).clamp(0, nt - 1)  # (B, C)
+    woff = pos % T
+    abs_idx = jbs[:, :, None] * T + torch.arange(T, device=dev)[None, None]
+    valid = (abs_idx < lengths.to(dev).long()[:, None, None])[..., None, None]
+    for pool, scale, new in ((ck, sk, k), (cv, sv, v)):
+        _quant_block_write(pool, scale, rows, (bi, wi, woff), new, valid,
+                           kv_dtype, dt)
     o = paged_prefill_attention(q.contiguous(), ck, cv, tables,
-                                lengths.to(torch.int32))
+                                lengths.to(torch.int32), k_scale=sk,
+                                v_scale=sv)
     return _out_proj(o.to(dt), params["wo"]), kvs

@@ -88,19 +88,21 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
             mod.init_cache(cfg, batch, max_seq, device=dev),
         cache_axes=lambda: mod.cache_axes(cfg),
         paged_decode_step=lambda params, pool, tables, tokens, positions,
-        kv_dtype="bf16": mod.paged_decode_step(
-            cfg, params, pool, tables, tokens, positions, kv_dtype=kv_dtype),
+        scales=None, kv_dtype="bf16": mod.paged_decode_step(
+            cfg, params, pool, tables, tokens, positions, scales=scales,
+            kv_dtype=kv_dtype),
         prefill_step=lambda params, cache, tokens, start, last:
             mod.prefill_step(cfg, params, cache, tokens, start, last),
         paged_prefill_step=lambda params, pool, tables, tokens, start, last,
-        kv_dtype="bf16": mod.paged_prefill_step(
-            cfg, params, pool, tables, tokens, start, last,
+        scales=None, kv_dtype="bf16": mod.paged_prefill_step(
+            cfg, params, pool, tables, tokens, start, last, scales=scales,
             kv_dtype=kv_dtype),
         verify_step=lambda params, cache, tokens, start:
             mod.verify_step(cfg, params, cache, tokens, start),
         paged_verify_step=lambda params, pool, tables, tokens, start,
-        kv_dtype="bf16": mod.paged_verify_step(
-            cfg, params, pool, tables, tokens, start, kv_dtype=kv_dtype),
+        scales=None, kv_dtype="bf16": mod.paged_verify_step(
+            cfg, params, pool, tables, tokens, start, scales=scales,
+            kv_dtype=kv_dtype),
     )
 
 

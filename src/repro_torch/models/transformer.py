@@ -233,14 +233,28 @@ def _dense_body(cfg: ArchConfig, attend, positions):
     return attn_body
 
 
-def _paged_window_body(cfg: ArchConfig, tables, positions, lengths,
+def _paged_leaves(pool, scales):
+    """The stacked leaves a paged step walks layer by layer: the (k, v)
+    pools (L, R, T, KV, dh), plus their (L, R, KV) f32 scales for a
+    narrow pool (``scales`` {"k", "v"})."""
+    if scales is None:
+        return (pool["k"], pool["v"])
+    return (pool["k"], pool["v"], scales["k"], scales["v"])
+
+
+def _paged_result(logits, pool, scales):
+    """(logits, pool), or (logits, pool, scales) for a narrow pool."""
+    return (logits, pool) if scales is None else (logits, pool, scales)
+
+
+def _paged_window_body(cfg: ArchConfig, tables, start, positions, lengths,
                        kv_dtype):
-    def attn_body(lp, hn, ck, cv):
+    def attn_body(lp, hn, *kvs):
         out, _ = attn.paged_chunk_prefill_attention(
-            lp["attn"], hn, (ck, cv), tables, positions, lengths,
+            lp["attn"], hn, kvs, tables, positions, lengths,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
             qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-            kv_dtype=kv_dtype)
+            kv_dtype=kv_dtype, start=start)
         return out
     return attn_body
 
@@ -256,24 +270,27 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, positions):
 
 
 def paged_decode_step(cfg: ArchConfig, params, pool, tables, tokens,
-                      positions, kv_dtype: str = "bf16"):
+                      positions, scales=None, kv_dtype: str = "bf16"):
     """Gather-free paged decode step (the serving O6 kernel path): each
     layer appends its token's K/V into the slot's active pool block in
     place and runs the paged-decode kernel on the raw pool leaves
     (L, R, T, KV, dh) through the block tables (B, nb) — the dense
-    per-slot view is never built.  Returns (logits, pool)."""
+    per-slot view is never built.  A narrow pool (``scales`` given, with
+    ``kv_dtype`` "int8" or "fp8") re-quantizes each slot's active block
+    around the append.  Returns (logits, pool), or (logits, pool,
+    scales) for a narrow pool."""
 
-    def attn_body(lp, hn, ck, cv):
+    def attn_body(lp, hn, *kvs):
         out, _ = attn.paged_decode_attention(
-            lp["attn"], hn, (ck, cv), tables, positions,
+            lp["attn"], hn, kvs, tables, positions,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
             qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
             kv_dtype=kv_dtype)
         return out
 
-    logits = _decode_layers(cfg, params, (pool["k"], pool["v"]), tokens,
+    logits = _decode_layers(cfg, params, _paged_leaves(pool, scales), tokens,
                             attn_body)
-    return logits, pool
+    return _paged_result(logits, pool, scales)
 
 
 def prefill_step(cfg: ArchConfig, params, cache, tokens, start, last):
@@ -292,19 +309,20 @@ def prefill_step(cfg: ArchConfig, params, cache, tokens, start, last):
 
 
 def paged_prefill_step(cfg: ArchConfig, params, pool, tables, tokens,
-                       start, last, kv_dtype: str = "bf16"):
+                       start, last, scales=None, kv_dtype: str = "bf16"):
     """Prompt-chunk step straight off the paged block pool: the chunk's
     K/V is scattered into pool blocks through the slot's table and the
     multi-query paged kernel (B2) attends the whole prefix — the dense
     view is never built.  Same contract as :func:`prefill_step` plus the
-    tables.  Returns (logits, pool)."""
+    tables (and the scales of a narrow pool).  Returns (logits, pool), or
+    (logits, pool, scales) for a narrow pool."""
     T = pool["k"].shape[2]
     positions, lengths = _window(start, tokens.shape[1], tables.shape[1] * T)
     logits = _decode_layers(
-        cfg, params, (pool["k"], pool["v"]), tokens,
-        _paged_window_body(cfg, tables, positions, lengths, kv_dtype),
+        cfg, params, _paged_leaves(pool, scales), tokens,
+        _paged_window_body(cfg, tables, start, positions, lengths, kv_dtype),
         last=last)
-    return logits, pool
+    return _paged_result(logits, pool, scales)
 
 
 def verify_step(cfg: ArchConfig, params, cache, tokens, start):
@@ -324,18 +342,19 @@ def verify_step(cfg: ArchConfig, params, cache, tokens, start):
 
 
 def paged_verify_step(cfg: ArchConfig, params, pool, tables, tokens, start,
-                      kv_dtype: str = "bf16"):
+                      scales=None, kv_dtype: str = "bf16"):
     """Speculative-verify step straight off the paged block pool: the
     window's K/V is scattered into pool blocks through the slot's table
     (writes past the reservation land in the NULL block) and the
     multi-query paged kernel (B2) attends the whole prefix.  Same
     all-rows contract as :func:`verify_step`; rejected drafts roll back
     by slot-length truncation — the tables never change, so blocks never
-    leak.  Returns (logits, pool)."""
+    leak.  Returns (logits, pool), or (logits, pool, scales) for a narrow
+    pool."""
     T = pool["k"].shape[2]
     positions, lengths = _window(start, tokens.shape[1], tables.shape[1] * T)
     logits = _decode_layers(
-        cfg, params, (pool["k"], pool["v"]), tokens,
-        _paged_window_body(cfg, tables, positions, lengths, kv_dtype),
+        cfg, params, _paged_leaves(pool, scales), tokens,
+        _paged_window_body(cfg, tables, start, positions, lengths, kv_dtype),
         all_rows=True)
-    return logits, pool
+    return _paged_result(logits, pool, scales)

@@ -23,10 +23,22 @@ kernel B2 on the raw pool) and the gather variant the dense steps on a
 gathered view, scattered back whole (``scatter_view``).  The port runs
 eagerly on one device, so a "step" is a plain function; placement is
 the engine's single-device record.
+
+A narrow pool (``kv_dtype`` "int8" / "fp8") travels as the manager's
+``{"pool", "scale"}`` bundle, which every paged step splits and passes
+on: the gather steps dequantize the gathered view and re-quantize what
+they scatter back; the kernel steps hand the scales to the model's
+paged steps, whose attention re-quantizes the blocks it writes and whose
+kernels dequantize each block they stage.  The two paths differ on
+narrow pools by design — the gather path attends the current token
+unquantized, the kernel path reads it re-quantized — so each owes the
+dtype's tolerance contract against the O5 tokens
+(``kvquant.tolerance_contract``), not bit-identity with the other.
 """
 
 from __future__ import annotations
 
+from repro_torch.serving import kvquant
 from repro_torch.serving.cache import CacheManager
 from repro_torch.serving.paged import PagedCacheManager
 from repro_torch.serving.sampler import make_sampler
@@ -77,19 +89,30 @@ def shared_steps(model, sampler_cfg) -> dict:
             "verify": _verify}
 
 
+def _split_cache(cache, quantized):
+    """(pool, scales) from a paged step's cache: a narrow pool travels as
+    a ``{"pool", "scale"}`` bundle, a wide one bare (scales None)."""
+    if quantized:
+        return cache["pool"], cache["scale"]
+    return cache, None
+
+
 def make_paged_fused(model, sample, manager):
     """The paged GATHER step: block-table gather -> the SAME dense
     ``decode_step`` the contiguous rungs run -> single-block scatter back
     into the pool (in place).  The dense view is identical to the
     contiguous cache at every unmasked position, so greedy tokens cannot
-    drift from the contiguous path."""
+    drift from the contiguous path (a narrow pool: up to its dtype's
+    tolerance contract)."""
     plan = manager.plan
 
-    def _fused(params, pool, tables, tokens, positions, seeds):
-        dense = plan.gather(pool, tables)
+    def _fused(params, cache, tables, tokens, positions, seeds):
+        pool, scales = _split_cache(cache, plan.quantized)
+        dense = plan.gather(pool, tables, scales)
         logits, dense = model.decode_step(params, dense, tokens, positions)
         toks = sample(logits, seeds)
-        return toks, plan.scatter(pool, tables, dense, positions)
+        plan.scatter(pool, tables, dense, positions, scales)
+        return toks, cache
 
     return _fused
 
@@ -100,12 +123,14 @@ def make_paged_kernel_fused(model, sample, manager):
     directly; each layer appends its token's K/V into the active block in
     place and the paged-decode kernel reads only the blocks each slot
     references."""
-    kv_dtype = manager.kv_dtype
+    quantized, kv_dtype = manager.plan.quantized, manager.kv_dtype
 
-    def _fused(params, pool, tables, tokens, positions, seeds):
-        logits, pool = model.paged_decode_step(params, pool, tables, tokens,
-                                               positions, kv_dtype=kv_dtype)
-        return sample(logits, seeds), pool
+    def _fused(params, cache, tables, tokens, positions, seeds):
+        pool, scales = _split_cache(cache, quantized)
+        logits = model.paged_decode_step(params, pool, tables, tokens,
+                                         positions, scales=scales,
+                                         kv_dtype=kv_dtype)[0]
+        return sample(logits, seeds), cache
 
     return _fused
 
@@ -174,8 +199,10 @@ class PagedLayout(KVLayout):
 
     ``paged_attn`` selects the steps' attention implementation and is
     recorded as ``attn_impl`` (every model family of the port has paged
-    decode, prefill and verify steps, so nothing degrades).  ``kv_dtype`` is the pool's
-    stored dtype; the manager raises for anything but "bf16".
+    decode, prefill and verify steps, so nothing degrades).  ``kv_dtype``
+    is the pool's stored dtype: "bf16" (bit-identical ladder), or "int8"
+    / "fp8" words with per-block scales, whose rung owes the dtype's
+    tolerance contract (``serving.kvquant.tolerance_contract``).
     """
 
     name = "paged"
@@ -186,7 +213,7 @@ class PagedLayout(KVLayout):
                 f"paged_attn must be 'gather' or 'kernel' "
                 f"(got {paged_attn!r})")
         self.attn_impl = paged_attn
-        self.kv_dtype = kv_dtype
+        self.kv_dtype = kvquant.validate_kv_dtype(kv_dtype)
 
     def build_manager(self, model, batch_size, max_seq, config):
         return PagedCacheManager(
@@ -224,22 +251,27 @@ class PagedLayout(KVLayout):
         plan, kv_dtype = manager.plan, manager.kv_dtype
 
         if self.attn_impl == "kernel":
-            def _prefill(params, pool, tables, islot, tokens, start, last,
+            def _prefill(params, cache, tables, islot, tokens, start, last,
                          seeds):
-                logits, pool = model.paged_prefill_step(
+                pool, scales = _split_cache(cache, plan.quantized)
+                logits = model.paged_prefill_step(
                     params, pool, tables[islot:islot + 1], tokens, start,
-                    last, kv_dtype=kv_dtype)
-                return sample(logits, seeds)[0], pool
+                    last, scales=scales, kv_dtype=kv_dtype)[0]
+                return sample(logits, seeds)[0], cache
             return _prefill
 
         dense_prefill = shared_steps(model, sampler_cfg)["prefill"]
 
-        def _prefill(params, pool, tables, islot, tokens, start, last,
+        def _prefill(params, cache, tables, islot, tokens, start, last,
                      seeds):
+            pool, scales = _split_cache(cache, plan.quantized)
             row = tables[islot:islot + 1]
-            token, dense = dense_prefill(params, plan.gather(pool, row), 0,
-                                         tokens, start, last, seeds)
-            return token, plan.scatter_view(pool, row, dense)
+            token, dense = dense_prefill(
+                params, plan.gather(pool, row, scales), 0, tokens, start,
+                last, seeds)
+            plan.scatter_view(pool, row, dense, scales,
+                              lengths=start + tokens.shape[1])
+            return token, cache
         return _prefill
 
     def make_verify_step(self, model, sampler_cfg, manager):
@@ -256,18 +288,23 @@ class PagedLayout(KVLayout):
         plan, kv_dtype = manager.plan, manager.kv_dtype
 
         if self.attn_impl == "kernel":
-            def _verify(params, pool, tables, tokens, start):
-                logits, pool = model.paged_verify_step(
-                    params, pool, tables, tokens, start, kv_dtype=kv_dtype)
-                return sample(logits, None), pool
+            def _verify(params, cache, tables, tokens, start):
+                pool, scales = _split_cache(cache, plan.quantized)
+                logits = model.paged_verify_step(
+                    params, pool, tables, tokens, start, scales=scales,
+                    kv_dtype=kv_dtype)[0]
+                return sample(logits, None), cache
             return _verify
 
         dense_verify = shared_steps(model, sampler_cfg)["verify"]
 
-        def _verify(params, pool, tables, tokens, start):
-            greedy, dense = dense_verify(params, plan.gather(pool, tables),
-                                         tokens, start)
-            return greedy, plan.scatter_view(pool, tables, dense)
+        def _verify(params, cache, tables, tokens, start):
+            pool, scales = _split_cache(cache, plan.quantized)
+            greedy, dense = dense_verify(
+                params, plan.gather(pool, tables, scales), tokens, start)
+            plan.scatter_view(pool, tables, dense, scales,
+                              lengths=start + tokens.shape[1])
+            return greedy, cache
         return _verify
 
 

@@ -1,5 +1,6 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (B1 decode, B2
-multi-query, B3 flash attention, B4 RWKV-6 WKV, B5 Mamba-2 SSD) against
+multi-query, both on wide and narrow int8 / fp8 pools, B3 flash
+attention, B4 RWKV-6 WKV, B5 Mamba-2 SSD, B6/B7 tiled matmul) against
 their plain PyTorch versions on the card.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
@@ -105,6 +106,111 @@ def test_paged_prefill_kernel_matches_plain_and_b1(dims, Q, dtype):
                                      lengths)
     assert torch.equal(q1[:, 0], ops.paged_attention(
         q[:, 0].contiguous(), kp, vp, tables, lengths))
+
+
+def _quant_case(dims, kvd, *, Q=None, seed=6):
+    """``_case`` in f32 quantized per (row, kv head) block to an int8 or
+    fp8 pool with (R, KV) scales; the unreferenced rows (the NULL block
+    among them) get NaN scales, and NaN bytes in an fp8 pool."""
+    from repro_torch.serving import kvquant
+
+    q, kp, vp, tables, lengths = _case(*dims, dtype=torch.float32,
+                                       seed=seed, Q=Q)
+    out = [q.bfloat16()]
+    for pool in (kp, vp):
+        unused = torch.isnan(pool).flatten(1).any(1)
+        x = torch.nan_to_num(pool)
+        s = kvquant.block_scale(x, (1, 3), kvd)
+        w = kvquant.quantize(x, s, kvd)
+        s = s[:, 0, :, 0].contiguous()
+        s[unused] = float("nan")
+        if kvd == "fp8":
+            kvquant.as_bytes(w)[unused] = 0x7F
+        out += [w, s]
+    q, kw, ks, vw, vs = out
+    return q, kw, vw, tables, lengths, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+@pytest.mark.parametrize("dims,Q", [
+    ((8, 32, 8, 128, 16, 128), None),   # qwen3-8b decode
+    ((8, 32, 8, 128, 16, 128), 5),      # qwen3-8b verify
+    ((1, 32, 8, 128, 16, 64), 64),      # qwen3-8b chunk
+    ((3, 4, 2, 16, 4, 6), 3),           # smoke width
+    ((4, 8, 8, 64, 8, 5), None),        # G = 1
+])
+def test_quantized_kernel_matches_plain_and_dequantized_pool(kvd, dims, Q):
+    """The quantized branch of B1/B2: within two bf16 ulps (of the row's
+    largest output for B2) plus 1e-3 of its plain version, and equal bit
+    for bit to the kernel on the same pool dequantized to bf16 with no
+    scales."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.serving import kvquant
+
+    q, kw, vw, tables, lengths, ks, vs = _quant_case(dims, kvd, Q=Q)
+    fn, plain = ((ops.paged_attention, ref.paged_attention_ref) if Q is None
+                 else (ops.paged_prefill_attention,
+                       ref.paged_prefill_attention_ref))
+    before = fn.launches
+    got = fn(q, kw, vw, tables, lengths, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.isfinite(got).all()
+    want = plain(q, kw, vw, tables, lengths, ks, vs).float()
+    err = (got.float() - want).abs()
+    row = want.abs().amax(dim=-1, keepdim=True)
+    assert (err <= 1e-3 + 1.6e-2 * row).all(), float(err.max())
+    wide = fn(q, kvquant.dequantize(kw, ks[:, None, :, None]),
+              kvquant.dequantize(vw, vs[:, None, :, None]), tables, lengths)
+    assert torch.equal(got, wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+@pytest.mark.parametrize("attn", ["gather", "kernel"])
+def test_narrow_pool_engine_on_the_card_within_contract_of_the_cpu(kvd,
+                                                                   attn):
+    """The smoke qwen3-8b engine at O6 on an int8 / fp8 pool, chunked
+    prefill 3, on the card and on the CPU from the same weights: tokens
+    within the dtype's tolerance contract of each other, the card's
+    bit-identical from run to run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.models import get_model
+    from repro_torch.serving import DecodeEngine, Request, kvquant
+    from repro_torch.tree import map_tree
+
+    cfg = dataclasses.replace(get_smoke("qwen3-8b"), compute_dtype="float32")
+    params = get_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    mix = [(rng.integers(1, cfg.vocab, int(rng.integers(1, 12))).tolist(),
+            int(rng.integers(1, 8))) for _ in range(8)]
+
+    def run(device):
+        model = get_model(cfg, device=device)
+        p = map_tree(lambda t: t.to(device), params)
+        eng = DecodeEngine(model, p, batch_size=4, max_seq=32,
+                           config=BestEffortConfig(
+                               level=OptLevel.O6, paged_attn=attn,
+                               kv_dtype=kvd, kv_block_size=4,
+                               kv_pool_blocks=20, prefill_chunk=3))
+        rids = [eng.submit(Request(prompt=list(pr), max_new_tokens=n))
+                for pr, n in mix]
+        fin = {r.rid: r.generated for r in eng.run()}
+        return [fin[r] for r in rids]
+
+    card = run("cuda")
+    assert run("cuda") == card
+    kvquant.assert_tokens_match(run("cpu"), card,
+                                kvquant.tolerance_contract(kvd),
+                                f"{kvd}/{attn} card vs cpu")
 
 
 def _flash_case(B, S, S_kv, H, Hkv, D, *, dtype, seed=7):

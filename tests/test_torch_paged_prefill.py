@@ -210,6 +210,8 @@ def test_kernel_entry_points_resolve_once(monkeypatch):
         first = kernel._entry("paged_attention_decode", 6)
         assert kernel._entry("paged_attention_decode", 6) is first
         assert loads == ["paged_attention"]
-        assert len(first.argtypes) == 16
+        # 8 pointers (q, k/v pools, k/v scales, tables, lengths, out),
+        # 6 dims, q_bf16, kv_kind, scale, stream
+        assert len(first.argtypes) == 18
     finally:
         kernel._entry.cache_clear()

@@ -195,9 +195,7 @@ def test_stochastic_samplers_deterministic_per_seed(kind, kw, rung):
 
 @pytest.mark.parametrize("cfg_kw", [
     dict(level=OptLevel.O0), dict(level=OptLevel.O1),
-    dict(level=OptLevel.O6, kv_dtype="int8"),
-    dict(level=OptLevel.O6, kv_dtype="fp8", paged_attn="kernel"),
-], ids=["O0", "O1", "int8", "fp8"])
+], ids=["O0", "O1"])
 def test_unported_rungs_raise(cfg_kw):
     _, _, tm, tp = _models("float32")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
