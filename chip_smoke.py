@@ -48,9 +48,11 @@ Phases (any failure raises, and the script exits non-zero):
               shape; device times of the kernel, the plain version and
               ``scaled_dot_product_attention(is_causal=True,
               enable_gqa=True)`` (the yardstick), the wrapper's host
-              time, and the bound; then (C9) at head_dim 16, 20 and 192
-              (B=2, S=1000, causal, bf16 and f32), and the Function's
-              gradients at head_dim 20;
+              time, and the bound; then (C9) at head_dim 16, 20, 192 and
+              256 (B=2, S=1000, causal, bf16 and f32), and the Function's
+              gradients at head_dim 20.  Every case logs the body that
+              ran (bf16: the mma.sync tensor-core body; f32: the CUDA-core
+              body, also timed at the training shape);
      3d.    — B4, the RWKV-6 WKV kernel, against its plain version
               (``wkv_chunked_ref``) at rwkv6-3b's training shape (B=4,
               S=4096, H=40, N=64, chunk 128) and at edges (the smoke
@@ -82,7 +84,10 @@ Phases (any failure raises, and the script exits non-zero):
               device times of the kernel, the plain version and
               ``torch.matmul`` (f32 with TF32 off; bf16 at O5), the
               wrapper's host time, and the bound (f32 rungs at the 67
-              TFLOP/s f32 peak);
+              TFLOP/s f32 peak).  Every case logs the B6 body that ran;
+              O5 at 1024^3 and 4096^3 must run the wgmma body, whose
+              time is read beside the CUDA-core body's at the same
+              blocks;
   4. ladder — smoke-width qwen3-8b on the card at O2, O4, O5, O6-gather,
               O6-kernel, with chunked prefill (chunks 3 and 8) on O5,
               O6-gather and O6-kernel, and at O7 with the smollm-360m
@@ -128,8 +133,9 @@ Phases (any failure raises, and the script exits non-zero):
               (train_4k's 256 cut to 8) from random weights: per-step
               loss, grad_norm, lr and wall time, tokens/s, peak memory,
               and B3's launches (32 forward + 32 remat recompute a step,
-              asserted); step 0's loss and grad_norm computed once with
-              B3 and once with the plain attention in its place;
+              all on the mma body, asserted); step 0's loss and
+              grad_norm computed once with B3 and once with the plain
+              attention in its place;
      6b.    — ``train()`` on the smoke configs of qwen3-8b (head_dim 16),
               smollm-360m (head_dim 20), rwkv6-3b (N=16) and mamba2-2.7b
               (P=32, N=16), 3 steps at batch 8 x 128 on the card and on
@@ -156,7 +162,8 @@ Phases (any failure raises, and the script exits non-zero):
               one step;
   9. paper  — the paper's ladder on the card: ``ops.matmul(a, b, level)``
               for O0..O5 at 1024^3 and O3..O5 at 4096^3, one B7 or B6
-              launch a call (asserted), each held to its plain version;
+              launch a call (asserted; O5 on B6's wgmma body, O1..O4 on
+              its CUDA-core body), each held to its plain version;
               the Fig. 4 analogue (device ms per rung, speedup over O0
               and over the rung before, beside the analytic model's);
               ``machsuite.gemm.run`` at every level on the card at 32 x
@@ -205,7 +212,10 @@ BQ_REPLACES = "src/repro/kernels/paged_attention/kernel.py:64"
 # the order the softmax denominator is summed in, moves every output of
 # the row at the row's scale, also where the output cancels to near 0.
 TOL = {"bf16": (1e-3, 1.6e-2), "f32": (1e-5, 1e-4)}
-B3_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+B3_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_mma.cu")
+B3_F32_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention.cu")
 B3_REPLACES = "src/repro/kernels/flash_attention/kernel.py:89"
 # |kernel - plain| <= RTOL * (the row's largest |plain|): two bf16 ulps
 # for bf16 (both round once from f32, so only a near-tie rounds apart);
@@ -253,6 +263,8 @@ RWKV_TRAIN_TOL = {32: {"loss": 1e-3}, 2: {"loss": 1e-3, "grad_norm": 1e-2}}
 MAMBA_TRAIN_TOL = {64: {"loss": 1e-3, "grad_norm": 1e-2},
                    2: {"loss": 1e-3, "grad_norm": 1e-2}}
 B6_SOURCE = "src/repro_torch/kernels/tiled_matmul/csrc/tiled_matmul.cu"
+B6_WGMMA_SOURCE = ("src/repro_torch/kernels/tiled_matmul/csrc/"
+                   "tiled_matmul_wgmma.cu")
 B6_REPLACES = "src/repro/kernels/tiled_matmul/kernel.py:63"
 B7_REPLACES = "src/repro/kernels/tiled_matmul/kernel.py:121"
 # |kernel - plain| <= MATMUL_TOL * max|plain| for B6 and B7 at every
@@ -836,8 +848,15 @@ def check_flash(name, case, causal, kind) -> float:
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
 
+    before = dict(ops.flash_attention.body_launches)
     got = ops.flash_attention(*case, causal=causal)
     torch.cuda.synchronize()
+    which = ops.body(case[0].dtype)
+    if ops.flash_attention.body_launches != {**before,
+                                             which: before[which] + 1}:
+        raise AssertionError(f"B3 {name} {kind}: body launches "
+                             f"{ops.flash_attention.body_launches}, "
+                             f"before {before}")
     want = ref.flash_attention_ref(*case, causal=causal).float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"B3 {name}: non-finite output")
@@ -848,7 +867,7 @@ def check_flash(name, case, causal, kind) -> float:
         raise AssertionError(
             f"B3 {name}: {int(bad.sum())} elements beyond {B3_TOL[kind]} "
             f"of their row's largest |plain| (max err {float(err.max())})")
-    log(f"[kernel] B3 {name} {kind}: max |kernel - plain| = "
+    log(f"[kernel] B3 {name} {kind} ({which} body): max |kernel - plain| = "
         f"{float(err.max()):.3e}, at most {float((err / row).max()):.3e} of "
         f"the row's largest |plain| (tolerance {B3_TOL[kind]})")
     return float(err.max())
@@ -951,6 +970,12 @@ def phase_flash_kernel() -> dict:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, enable_gqa=True)),
     }
+    # The f32 CUDA-core body at the same shape, for the record (f32
+    # callers only; the main path trains in bf16).
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    res["cuda_core_f32_ms"] = time_ms(
+        lambda: ops.flash_attention(q32, k32, v32, causal=True), reps=10)
+    del q32, k32, v32
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     flops = 4 * B * H * D * attended_pairs(S, S_kv, True)   # QK and PV
     bound_ms, bound_by = bound(nbytes, flops)
@@ -959,6 +984,7 @@ def phase_flash_kernel() -> dict:
         "name": "flash_attention",
         "route": "cuda",
         "source": B3_SOURCE,
+        "cuda_core_source": B3_F32_SOURCE,
         "replaces": B3_REPLACES,
         "launches": None,
         "max_abs_err": errs[main_key],
@@ -971,11 +997,13 @@ def phase_flash_kernel() -> dict:
         "errors": errs,
         "grad_rel_err": grad_err,
     }
-    log(f"[kernel] B3 ({out['shape']}): kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, library (sdpa, is_causal, enable_gqa) "
-        f"{res['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes} B, {flops} FLOP); the wrapper's host time per call "
-        f"{res['wrapper_host_ms']:.4f} ms")
+    log(f"[kernel] B3 ({out['shape']}, mma body): kernel {res['ms']:.4f} "
+        f"ms, plain {res['plain_ms']:.4f} ms, library (sdpa, is_causal, "
+        f"enable_gqa) {res['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes} B, {flops} FLOP), "
+        f"{bound_ms / res['ms'] * 100:.2f}% of it; the wrapper's host time "
+        f"per call {res['wrapper_host_ms']:.4f} ms; the f32 CUDA-core body "
+        f"at the same shape in f32 {res['cuda_core_f32_ms']:.4f} ms")
     del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
     return out
@@ -984,13 +1012,15 @@ def phase_flash_kernel() -> dict:
 def phase_flash_widths() -> dict:
     """Phase 3c, head widths (C9): B3 against its plain version at
     head_dim 16 (qwen3-8b smoke), 20 (smollm-360m smoke; 40-byte bf16
-    rows, the scalar loads) and 192 (nemotron-4-340b), bf16 and f32,
-    causal; the Function's gradients at head_dim 20."""
+    rows, the element copies), 192 (nemotron-4-340b) and 256 (the widest
+    instance; 192 and 256 take the mma body's narrower key tile), bf16
+    and f32, causal; the Function's gradients at head_dim 20."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
 
     errs = {}
-    for i, (H, Hkv, D) in enumerate(((4, 2, 16), (3, 1, 20), (8, 2, 192))):
+    for i, (H, Hkv, D) in enumerate(((4, 2, 16), (3, 1, 20), (8, 2, 192),
+                                     (4, 2, 256))):
         name = f"head_dim {D} B=2 S=1000 H={H} Hkv={Hkv} causal"
         for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             case = flash_case(2, 1000, 1000, H, Hkv, D, dtype=dt,
@@ -1358,13 +1388,33 @@ def rung_call(level: int, a, b, blocks=None):
                                   "double_buffer")})
 
 
-def check_matmul(name: str, level: int, a, b, blocks=None) -> dict:
-    """One rung on the card against its plain version (MATMUL_TOL)."""
-    import torch
+def rung_body(level: int, ac, bc, blk) -> str:
+    """The kernel a rung's call runs: B7 at O0, else B6's body as
+    ``ops.body`` routes it."""
+    from repro_torch.kernels.tiled_matmul import ops
 
-    kern, plain, _, _, blk = rung_call(level, a, b, blocks)
+    if level == 0:
+        return "B7"
+    return ops.body(ac.dtype, ac.shape[0], bc.shape[1], ac.shape[1],
+                    blk["bm"], blk["bn"], blk["bk"])
+
+
+def check_matmul(name: str, level: int, a, b, blocks=None) -> dict:
+    """One rung on the card against its plain version (MATMUL_TOL); the
+    B6 body that ran is read from its launch counters."""
+    import torch
+    from repro_torch.kernels.tiled_matmul import ops
+
+    kern, plain, _, (ac, bc), blk = rung_call(level, a, b, blocks)
+    which = rung_body(level, ac, bc, blk)
+    before = dict(ops.matmul_tiled.body_launches)
     got, want = kern(), plain()
     torch.cuda.synchronize()
+    if level and ops.matmul_tiled.body_launches != {
+            **before, which: before[which] + 1}:
+        raise AssertionError(f"{name} O{level}: B6 body launches "
+                             f"{ops.matmul_tiled.body_launches}, before "
+                             f"{before}, want one {which}")
     if got.dtype != torch.float32 or got.shape != want.shape:
         raise AssertionError(f"{name} O{level}: {got.dtype} "
                              f"{tuple(got.shape)}")
@@ -1374,15 +1424,21 @@ def check_matmul(name: str, level: int, a, b, blocks=None) -> dict:
         raise AssertionError(f"[kernel] B{7 if level == 0 else 6} {name} "
                              f"O{level}: max |kernel - plain| {err:.3e} > "
                              f"{MATMUL_TOL} * {scale:.3e}")
-    return {"max_abs_err": err, "rel_err": err / scale, "blocks": blk}
+    return {"max_abs_err": err, "rel_err": err / scale, "blocks": blk,
+            "body": which}
 
 
 def time_rung(level: int, a, b) -> dict:
     """Device times of one rung's kernel, plain version and library call,
     the wrapper's host time, and the bound (bytes: operands as the
     kernel reads them once and the f32 output written once; operations:
-    2 M N K at the f32 peak, or the bf16 peak at O5)."""
+    2 M N K at the f32 peak, or the bf16 peak at O5); where the rung
+    runs B6's wgmma body, also the CUDA-core body's time at its blocks."""
+    import torch
+    from repro_torch.kernels.tiled_matmul import kernel
+
     kern, plain, lib, (ac, bc), blk = rung_call(level, a, b)
+    which = rung_body(level, ac, bc, blk)
     slow = level in SLOW_RUNGS
     reps, warm = (2, 1) if slow else (30, 3)
     M, K = ac.shape
@@ -1392,12 +1448,27 @@ def time_rung(level: int, a, b) -> dict:
     flops = 2 * M * N * K
     bound_ms, bound_by = bound(nbytes, flops,
                                BF16_FLOPS if level >= 5 else F32_FLOPS)
-    return {"ms": time_ms(kern, reps=reps, warmup=warm),
-            "plain_ms": time_ms(plain, reps=5 if slow else 10, warmup=1),
-            "library_ms": time_ms(lib, reps=10, warmup=2),
-            "wrapper_host_ms": host_ms(kern, reps=3 if slow else 200),
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "flops": flops, "blocks": blk}
+    out = {"ms": time_ms(kern, reps=reps, warmup=warm),
+           "plain_ms": time_ms(plain, reps=5 if slow else 10, warmup=1),
+           "library_ms": time_ms(lib, reps=10, warmup=2),
+           "wrapper_host_ms": host_ms(kern, reps=3 if slow else 200),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": flops, "blocks": blk, "body": which}
+    if which == "wgmma":
+        # The CUDA-core body at the same blocks, launched directly (not
+        # through the router, not counted): the time the rung had before
+        # it took the tensor cores.
+        c = torch.empty((M, N), dtype=torch.float32, device="cuda")
+        grid = (M // blk["bm"]) * (N // blk["bn"])
+        out["cuda_core_ms"] = time_ms(lambda: kernel.launch_tiled(
+            ac, bc, c, bm=blk["bm"], bn=blk["bn"], bk=blk["bk"], grid=grid,
+            stages=2), reps=10)
+        want = plain()
+        err = float((c - want).abs().max())
+        if not err <= MATMUL_TOL * float(want.abs().max()):
+            raise AssertionError(f"O{level} CUDA-core body at the wgmma "
+                                 f"blocks off its plain version by {err}")
+    return out
 
 
 def phase_matmul_kernel() -> tuple:
@@ -1451,6 +1522,18 @@ def phase_matmul_kernel() -> tuple:
     log(f"[kernel] B6/B7: {len(errs)} cases within {MATMUL_TOL} of max "
         f"|plain|; worst {worst['rel_err']:.3e} "
         f"({max(errs, key=lambda k: errs[k]['rel_err'])})")
+    for body in ("wgmma", "cuda_core", "B7"):
+        keys = [k for k, r in errs.items() if r["body"] == body]
+        if not keys:
+            continue
+        w = max(keys, key=lambda k: errs[k]["rel_err"])
+        log(f"[kernel] B6/B7 {body}: {len(keys)} cases, worst "
+            f"{errs[w]['rel_err']:.3e} of max |plain| ({w}); cases: "
+            + ", ".join(keys))
+    for key in (f"{n}^3 O5", f"{LADDER_BIG}^3 O5"):
+        if errs[key]["body"] != "wgmma":
+            raise AssertionError(f"{key} ran B6's {errs[key]['body']} body, "
+                                 f"not the wgmma body")
 
     rungs = {}
     for level in range(6):
@@ -1458,18 +1541,20 @@ def phase_matmul_kernel() -> tuple:
     for level in (3, 4, 5):
         rungs[f"O{level} {LADDER_BIG}^3"] = time_rung(level, *big)
     for key, r in rungs.items():
+        old = (f" (the CUDA-core body at these blocks {r['cuda_core_ms']:.4f}"
+               f" ms)" if "cuda_core_ms" in r else "")
         log(f"[kernel] B{7 if key.startswith('O0') else 6} {key} blocks "
-            f"{r['blocks']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} "
+            f"{r['blocks']}, {r['body']} body: kernel {r['ms']:.4f} ms{old}, "
+            f"plain {r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['bound_ms'] / r['ms'] * 100:.2f}% of it; the wrapper's "
             f"host time per call {r['wrapper_host_ms']:.4f} ms")
     del a, b, big
     torch.cuda.empty_cache()
 
-    def entry(name, replaces, key, err_keys):
+    def entry(name, replaces, key, err_keys, source):
         r = rungs[key]
-        return {"name": name, "route": "cuda", "source": B6_SOURCE,
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": None,
                 "max_abs_err": max(errs[k]["max_abs_err"] for k in err_keys),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1480,10 +1565,13 @@ def phase_matmul_kernel() -> tuple:
 
     main_keys = [k for k in errs if k.startswith(("1024^3", "4096^3"))]
     b6 = entry("tiled_matmul", B6_REPLACES, f"O5 {n}^3",
-               [k for k in main_keys if not k.endswith("O0")])
+               [k for k in main_keys if not k.endswith("O0")],
+               B6_WGMMA_SOURCE)
+    b6["cuda_core_source"] = B6_SOURCE
     b6["rungs"] = {k: v for k, v in rungs.items() if not k.startswith("O0")}
     b6["errors"] = {k: v for k, v in errs.items() if not k.endswith("O0")}
-    b7 = entry("matmul_whole", B7_REPLACES, f"O0 {n}^3", [f"{n}^3 O0"])
+    b7 = entry("matmul_whole", B7_REPLACES, f"O0 {n}^3", [f"{n}^3 O0"],
+               B6_SOURCE)
     b7["errors"] = {k: v for k, v in errs.items() if k.endswith("O0")}
     return b6, b7
 
@@ -2510,6 +2598,8 @@ def _counted():
 def reset_launches() -> None:
     for fn in _counted():
         fn.launches = 0
+        for body in getattr(fn, "body_launches", {}):
+            fn.body_launches[body] = 0
 
 
 def no_training_kernels(run: str) -> None:
@@ -2527,6 +2617,12 @@ def no_training_kernels(run: str) -> None:
 
 def read_launches() -> dict:
     return {fn.__name__: fn.launches for fn in _counted()}
+
+
+def read_body_launches() -> dict:
+    """Launches of each body of the wrappers that have two (B3, B6)."""
+    return {fn.__name__: dict(fn.body_launches) for fn in _counted()
+            if hasattr(fn, "body_launches")}
 
 
 def profile_train_step(art, params, opt, batch) -> dict:
@@ -2563,7 +2659,7 @@ def profile_train_step(art, params, opt, batch) -> dict:
 def _kernel_kind(name: str) -> str:
     """A coarse class of a device kernel's name, for the step breakdown."""
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_mma_kernel" in name or "flash_fwd_kernel" in name:
         return "B3"
     if "wkv_fwd_kernel" in name:
         return "B4"
@@ -2689,6 +2785,7 @@ def train_full_width(cfg, want: dict, B: int, *, kernel, ops_module, plain,
     with mock.patch.object(steps, "build_train", counting_build):
         out = train(cfg, shape, steps=n_steps, seed=0)
     launches = read_launches()
+    body_launches = read_body_launches()
     peak = torch.cuda.max_memory_allocated()
     if per_step != [2 * L] * n_steps or launches[name] != n_steps * 2 * L:
         raise AssertionError(
@@ -2737,7 +2834,8 @@ def train_full_width(cfg, want: dict, B: int, *, kernel, ops_module, plain,
             "steps": n_steps, "metrics": out_metrics, "step_ms": step_ms,
             "steady_ms": statistics.mean(steady), "tokens_per_s": tok_s,
             "peak_bytes": peak, "launches": launches,
-            "launches_per_step": per_step, "step0": step0, "profile": prof}
+            "body_launches": body_launches, "launches_per_step": per_step,
+            "step0": step0, "profile": prof}
 
 
 def phase_train() -> dict:
@@ -2750,12 +2848,20 @@ def phase_train() -> dict:
     want = dict(n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
                 head_dim=64, d_ff=2560, vocab=49_152, param_dtype="float32",
                 compute_dtype="bfloat16", remat=True, q_chunk=1024)
-    return train_full_width(
+    out = train_full_width(
         get_config("smollm-360m"), want, 8, kernel=fops.flash_attention,
         ops_module=fops,
         plain=lambda q, k, v, causal: fref.flash_attention_ref(
             q, k, v, causal=causal),
         tol=TRAIN_TOL, tag="train")
+    # bf16 compute: every launch on the tensor-core body.
+    bodies = out["body_launches"]["flash_attention"]
+    n = out["launches"]["flash_attention"]
+    if bodies != {"cuda_core": 0, "mma": n} or n == 0:
+        raise AssertionError(f"smollm training ran B3's bodies {bodies}; "
+                             f"want all {n} launches on the mma body")
+    log(f"[train] B3 bodies in the training run: {bodies}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2908,15 +3014,25 @@ def phase_paper_ladder() -> dict:
     reset_launches()
     outs = []
     for level, size, (x, y) in calls:
-        before = (ops.matmul_whole.launches, ops.matmul_tiled.launches)
+        before = (ops.matmul_whole.launches, ops.matmul_tiled.launches,
+                  dict(ops.matmul_tiled.body_launches))
         outs.append(ops.matmul(x, y, level))
         got = (ops.matmul_whole.launches - before[0],
                ops.matmul_tiled.launches - before[1])
         if got != ((1, 0) if level == 0 else (0, 1)):
             raise AssertionError(f"O{level} {size}^3: launches (B7, B6) "
                                  f"{got}")
+        # O5's bf16 tiles run the tensor-core body, O1..O4 the CUDA cores.
+        which = "wgmma" if level == 5 else "cuda_core"
+        if level and ops.matmul_tiled.body_launches != {
+                **before[2], which: before[2][which] + 1}:
+            raise AssertionError(f"O{level} {size}^3: B6 bodies "
+                                 f"{ops.matmul_tiled.body_launches}, want "
+                                 f"one more {which}")
     torch.cuda.synchronize()
     launches = read_launches()
+    body_launches = read_body_launches()["matmul_tiled"]
+    log(f"[paper] B6 bodies in the ladder: {body_launches}")
     if (launches["matmul_whole"], launches["matmul_tiled"]) != (1, 8) or any(
             v for k, v in launches.items()
             if k not in ("matmul_whole", "matmul_tiled")):
@@ -2974,8 +3090,8 @@ def phase_paper_ladder() -> dict:
     log(f"[paper] machsuite gemm 32x32 on the card, every level held to "
         f"the oracle (rtol 2e-4, atol 1e-5); wall s: "
         f"{ {k: round(v['wall_s'], 4) for k, v in machsuite.items()} }")
-    return {"launches": launches, "ms": ms, "fig4": rows,
-            "machsuite_gemm": machsuite}
+    return {"launches": launches, "body_launches": body_launches, "ms": ms,
+            "fig4": rows, "machsuite_gemm": machsuite}
 
 
 def _leaves(tree):
@@ -3014,7 +3130,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for path, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("properties for", "registers",
+                                       "spill")):
                 log(f"[build] {Path(path).name}: {line.strip()}")
 
     b1, b1_main = phase_kernel()
@@ -3054,9 +3171,11 @@ def main() -> int:
         k["launches_by_run"] = {run: n["launches"][wrapper]
                                 for run, n in narrow.items()}
         k["launches"] = k["launches_by_run"][main_run]
-    # B3 on its main path: phase 6's train() run.
+    # B3 on its main path: phase 6's train() run, by body.
     b3["launches"] = trained["launches"]["flash_attention"]
     b3["launches_by_run"] = {"train": b3["launches"]}
+    for body, count in trained["body_launches"]["flash_attention"].items():
+        b3[f"launches_{body}"] = count
     # B4 on its main path: phase 7's train() run.
     b4["launches"] = rwkv["launches"]["wkv"]
     b4["launches_by_run"] = {"train rwkv6-3b": b4["launches"]}
@@ -3067,6 +3186,8 @@ def main() -> int:
     for k, wrapper in ((b6, "matmul_tiled"), (b7, "matmul_whole")):
         k["launches"] = paper["launches"][wrapper]
         k["launches_by_run"] = {"paper ladder": k["launches"]}
+    for body, count in paper["body_launches"].items():
+        b6[f"launches_{body}"] = count
     kerns = [b1, b2, b1q, b2q, b3, b4, b5, b6, b7]
 
     result = {"card": card, "kernels": kerns, "ladder": ladder,

@@ -1,24 +1,27 @@
-// Flash attention for Hopper (sm_90a): blocked causal or non-causal
-// softmax attention with an online softmax, GQA by index, and the causal
-// mask shifted by S_kv - S.
+// Flash attention for Hopper (sm_90a), f32 body: blocked causal or
+// non-causal softmax attention with an online softmax, GQA by index, and
+// the causal mask shifted by S_kv - S, on the CUDA cores.
 //
-// Replaces the Pallas TPU kernel
+// Replaces, with flash_attention_mma.cu's bf16 tensor-core body, the
+// Pallas TPU kernel
 //   B3 src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
 //      (body _attn_kernel)
-// and computes what it computes, not block by block:
+// for f32 operands (ops.body() routes by dtype; TF32 tensor cores would
+// break f32's 1e-5 tolerance), and computes what it computes, not block
+// by block:
 //
-//   q   (B, S, H, D)       bf16 or f32
-//   k/v (B, S_kv, Hkv, D)  the same dtype, H % Hkv == 0, S_kv >= S
-//   out (B, S, H, D)       q's dtype
+//   q   (B, S, H, D)       f32
+//   k/v (B, S_kv, Hkv, D)  f32, H % Hkv == 0, S_kv >= S
+//   out (B, S, H, D)       f32
 //
 // Query head h of batch b reads kv head h / (H / Hkv): the TPU kernel's
 // kv_stream index map, with no K/V repeat.  Scores are
 // dot(q_f32, k_f32) * scale with an f32 scale (1 / sqrt(D), passed in);
 // with causal, query row r attends kv positions <= r + (S_kv - S), and
 // masked scores are -1e30, never -inf.  The running max m, sum l and
-// accumulator acc are f32; at the end out = acc / max(l, 1e-30), cast to
-// q's dtype.  expf (not __expf) keeps the kernel within reduction-order
-// noise of its plain version.
+// accumulator acc are f32; at the end out = acc / max(l, 1e-30).  expf
+// (not __expf) keeps the kernel within reduction-order noise of its
+// plain version.
 //
 // One thread block per (query tile of kBQ rows, batch x query head).  A
 // loop inside the block over key tiles of kBK positions replaces the
@@ -26,7 +29,7 @@
 // the block's last row's limit, where the TPU kernel skips the blocks
 // above the diagonal.  Blocks run heavy tiles first (blockIdx.x counts
 // query tiles from the end), so the causal triangle's long tiles are not
-// left for last.  The q tile is staged once in shared memory as f32; for
+// left for last.  The q tile is staged once in shared memory; for
 // each key tile the block stages K (16-byte loads, all of a thread's
 // loads issued before any is used), computes its scores, runs the online
 // softmax in registers, writes P to shared memory, then stages V in K's
@@ -39,7 +42,7 @@
 // columns dh .. D - 1 of every staged tile are zero, so they add nothing
 // to a score, and the output columns past dh are not written.  Rows
 // whose bytes are a multiple of 16 (with 16-byte aligned operands) are
-// staged with 16-byte loads; any other row (20 bf16 values are 40 B)
+// staged with 16-byte loads; any other row (dh not a multiple of 4)
 // with one scalar load per element.
 //
 // Work split: 128 threads as 16 x 8; thread (ty, tx) owns query rows
@@ -56,18 +59,16 @@
 // 4 x D / 8 accumulators: the build log prints every instance's ptxas
 // register and spill lines.
 
-// Bound: the operations.  At smollm-360m's training shape (B=8, S=4096,
-// H=15, Hkv=5, D=64, causal) the attention is 2 B H S^2 D = 2.6e11 FLOP
-// against 989 TFLOP/s of dense bf16 tensor-core math (0.26 ms), while
-// q, k, v and out are 168 MB against 3.35 TB/s (0.05 ms).  This design
-// does its products in f32 on the CUDA cores, whose peak is 67 TFLOP/s,
-// so it cannot come within 15x of that bound.  Known gaps, for later
-// work: no tensor cores (mma.sync / wgmma over bf16 tiles), no TMA or
-// cp.async pipeline overlapping the next tile's loads with this tile's
-// math, diagonal tiles computed in full and masked, and no backward
-// kernel (the autograd backward recomputes through the plain version).
+// Bound: the operations.  At smollm-360m's heads (B=8, S=4096, H=15,
+// Hkv=5, D=64, causal) the attention is 2.6e11 FLOP against 67 TFLOP/s
+// of f32 outside the tensor cores (3.9 ms), while q, k, v and out in f32
+// are 336 MB against 3.35 TB/s (0.10 ms).  The main path trains in bf16
+// and runs the tensor-core body; this one serves f32 callers.  Known
+// gaps, for later work: no pipeline overlapping the next tile's loads
+// with this tile's math (3xTF32 tensor-core math would keep f32
+// accuracy), diagonal tiles computed in full and masked, and no
+// backward kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -82,34 +83,6 @@ constexpr int kCols = kBK / 8;   // score columns per thread
 constexpr int kLoads = 8;        // 16-byte loads a thread keeps in flight
 constexpr float kNegInf = -1e30f;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// Widen one 16-byte load to floats: 8 bf16 (a bf16 is the top half of
-// the float with the same bits) or 4 f32.
-template <typename T> __device__ __forceinline__ void unpack(const uint4& r,
-                                                             float* dst);
-template <> __device__ __forceinline__ void unpack<float>(const uint4& r,
-                                                          float* dst) {
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(__uint_as_float(r.x), __uint_as_float(r.y),
-                  __uint_as_float(r.z), __uint_as_float(r.w));
-}
-template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(
-    const uint4& r, float* dst) {
-  *reinterpret_cast<float4*>(dst) = make_float4(
-      __uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-      __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(
-      __uint_as_float(r.z << 16), __uint_as_float(r.z & 0xffff0000u),
-      __uint_as_float(r.w << 16), __uint_as_float(r.w & 0xffff0000u));
-}
 
 __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -126,23 +99,15 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // Stage kBQ (= kBK) rows of dh elements into dst (row stride D + 4
-// floats) as f32; source row t is at src + t * stride.  Rows at or past
-// n_rows and columns at or past dh are zero-filled.  With ``vec`` (dh *
-// sizeof(T) a multiple of 16, operands 16-byte aligned) each thread
-// issues up to kLoads 16-byte loads before it converts and stores any,
-// so their latencies overlap; otherwise it loads one element at a time.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+// floats); source row t is at src + t * stride.  Rows at or past n_rows
+// and columns at or past dh are zero-filled.  With ``vec`` (dh a
+// multiple of 4, operands 16-byte aligned) each thread issues up to
+// kLoads 16-byte loads before it stores any, so their latencies overlap;
+// otherwise it loads one element at a time.
+template <int D>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src,
                                       size_t stride, int n_rows, int dh,
                                       bool vec) {
   constexpr int LD = D + 4;
@@ -151,12 +116,11 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
       const int t = i / D;
       const int c = i - t * D;
-      dst[t * LD + c] =
-          t < n_rows && c < dh ? to_f32<T>(src[t * stride + c]) : 0.f;
+      dst[t * LD + c] = t < n_rows && c < dh ? src[t * stride + c] : 0.f;
     }
     return;
   }
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 4;
   constexpr int kPerRow = D / kVec;
   constexpr int kN = kBK * kPerRow;
 #pragma unroll
@@ -176,17 +140,19 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
       const int i = base + u * kThreads + threadIdx.x;
       const int t = i / kPerRow;
       if (i < kN)
-        unpack<T>(regs[u], dst + t * LD + (i - t * kPerRow) * kVec);
+        *reinterpret_cast<uint4*>(dst + t * LD + (i - t * kPerRow) * kVec) =
+            regs[u];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int S,
-                     int Skv, int H, int Hkv, int dh, int vec, float scale,
-                     int causal) {
+    flash_fwd_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int S, int Skv, int H, int Hkv, int dh, int vec,
+                     float scale, int causal) {
   constexpr int LD = D + 4;      // row stride of the q and K/V tiles
   constexpr int PLD = kBK + 4;   // row stride of P
   constexpr int DG = D / 32;     // float4 output groups per thread
@@ -206,12 +172,12 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   const int ty = tid >> 3;
   const size_t q_stride = static_cast<size_t>(H) * dh;
   const size_t kv_stride = static_cast<size_t>(Hkv) * dh;
-  const T* kb = k + static_cast<size_t>(b) * Skv * kv_stride +
-                static_cast<size_t>(hk) * dh;
-  const T* vb = v + static_cast<size_t>(b) * Skv * kv_stride +
-                static_cast<size_t>(hk) * dh;
+  const float* kb = k + static_cast<size_t>(b) * Skv * kv_stride +
+                    static_cast<size_t>(hk) * dh;
+  const float* vb = v + static_cast<size_t>(b) * Skv * kv_stride +
+                    static_cast<size_t>(hk) * dh;
 
-  stage<T, D>(q_s,
+  stage<D>(q_s,
                q + (static_cast<size_t>(b) * S + q0) * q_stride +
                    static_cast<size_t>(h) * dh,
                q_stride, min(kBQ, S - q0), dh, vec);
@@ -233,8 +199,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     const int n_valid = min(kBK, Skv - k0);
     __syncthreads();   // the previous tile's P @ V is done with kv_s, p_s
-    stage<T, D>(kv_s, kb + k0 * kv_stride, kv_stride, n_valid, dh,
-                 vec);
+    stage<D>(kv_s, kb + k0 * kv_stride, kv_stride, n_valid, dh, vec);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -294,8 +259,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
       for (int e = 0; e < 4 * DG; ++e) acc[r][e] *= alpha;
     }
     __syncthreads();   // every thread is done with K; P is written
-    stage<T, D>(kv_s, vb + k0 * kv_stride, kv_stride, n_valid, dh,
-                 vec);
+    stage<D>(kv_s, vb + k0 * kv_stride, kv_stride, n_valid, dh, vec);
     __syncthreads();
 
 #pragma unroll 2
@@ -328,47 +292,46 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
     const int row = q0 + 4 * ty + r;
     if (row >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* o = out + (static_cast<size_t>(b) * S + row) * q_stride +
-           static_cast<size_t>(h) * dh;
+    float* o = out + (static_cast<size_t>(b) * S + row) * q_stride +
+               static_cast<size_t>(h) * dh;
 #pragma unroll
     for (int g = 0; g < DG; ++g)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (4 * tx + 32 * g + e < dh)
-          o[4 * tx + 32 * g + e] = from_f32<T>(acc[r][4 * g + e] / denom);
+          o[4 * tx + 32 * g + e] = acc[r][4 * g + e] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int Skv, int H, int Hkv, int dh, int vec, int causal,
            float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kBQ * (D + 4) + kBK * (D + 4) + kBQ * (kBK + 4));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Skv, H, Hkv, dh,
-      vec, scale, causal);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, Skv, H, Hkv,
+      dh, vec, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_width(const void* q, const void* k, const void* v, void* out,
                  int B, int S, int Skv, int H, int Hkv, int dh, int causal,
                  float scale, cudaStream_t s) {
-  const int vec = (dh * sizeof(T)) % 16 == 0 &&
+  const int vec = dh % 4 == 0 &&
                   reinterpret_cast<size_t>(q) % 16 == 0 &&
                   reinterpret_cast<size_t>(k) % 16 == 0 &&
                   reinterpret_cast<size_t>(v) % 16 == 0;
 #define FLASH_WIDTH(W)                                                  \
   if (dh <= W)                                                          \
-    return launch<T, W>(q, k, v, out, B, S, Skv, H, Hkv, dh, vec, causal, \
-                        scale, s);
+    return launch<W>(q, k, v, out, B, S, Skv, H, Hkv, dh, vec, causal, \
+                     scale, s);
   FLASH_WIDTH(32)
   FLASH_WIDTH(64)
   FLASH_WIDTH(128)
@@ -380,20 +343,17 @@ int launch_width(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  ``bf16`` selects bf16 (1) or
-// f32 (0) for q, k, v and out; 1 <= dh <= 256.  Returns
-// cudaGetLastError() after the launch: 0 on success.
+// Plain C entry point (loaded with ctypes): f32 q, k, v and out,
+// 1 <= dh <= 256.  Returns cudaGetLastError() after the launch: 0 on
+// success.
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* out, int B,
                                        int S, int Skv, int H, int Hkv, int dh,
-                                       int causal, int bf16, float scale,
+                                       int causal, float scale,
                                        void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || Skv < S || dh < 1 || dh > 256)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_width<__nv_bfloat16>(q, k, v, out, B, S, Skv, H, Hkv,
-                                            dh, causal, scale, s)
-              : launch_width<float>(q, k, v, out, B, S, Skv, H, Hkv, dh,
-                                    causal, scale, s);
+  return launch_width(q, k, v, out, B, S, Skv, H, Hkv, dh, causal, scale,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -5,6 +5,13 @@ else, then launches the CUDA kernel for CUDA tensors — no fallback — or
 runs the plain version (``ref``) for CPU tensors.  Each kernel launch
 adds one to ``flash_attention.launches``.
 
+The kernel has two bodies, and ``body`` picks one by dtype alone: bf16
+runs the tensor-core body (``csrc/flash_attention_mma.cu``: mma.sync,
+cp.async double buffering), f32 the CUDA-core body
+(``csrc/flash_attention.cu``), whose f32 FMAs keep f32's accuracy.
+Each body counts its launches in ``flash_attention.body_launches``; a
+body that fails to build or launch raises.
+
 Gradients: the reference has no backward kernel for B3 (no
 ``custom_vjp``), and a B3 backward kernel is a later PR's work.
 ``FlashAttention``'s forward is the kernel; its backward recomputes the
@@ -24,6 +31,7 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
+BODIES = ("cuda_core", "mma")
 # The widest head the kernel is compiled for (it pads any narrower one
 # to its next instance), and CUDA's grid-y limit (one row of blocks per
 # batch x query head).
@@ -53,6 +61,12 @@ def _check(q, k, v) -> None:
                          f"{k.device}, {v.device}")
 
 
+def body(dtype) -> str:
+    """Which B3 body runs operands of ``dtype``: ``"mma"`` (tensor
+    cores) for bf16, ``"cuda_core"`` for f32."""
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
+
+
 def _forward(q, k, v, causal: bool):
     """B3 itself: the kernel on a CUDA tensor, the plain version on a CPU
     one; anything else raises."""
@@ -68,10 +82,13 @@ def _forward(q, k, v, causal: bool):
     if B * H > _MAX_GRID_Y:
         raise ValueError(f"B * H = {B * H} exceeds the kernel grid's "
                          f"{_MAX_GRID_Y} (q {tuple(q.shape)})")
+    which = body(q.dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    kernel.launch(q, k, v, out, causal=causal, scale=1.0 / D ** 0.5)
+    kernel.launch(q, k, v, out, causal=causal, scale=1.0 / D ** 0.5,
+                  body=which)
     flash_attention.launches += 1
+    flash_attention.body_launches[which] += 1
     return out
 
 
@@ -149,3 +166,4 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
 
 
 flash_attention.launches = 0
+flash_attention.body_launches = dict.fromkeys(BODIES, 0)

@@ -26,11 +26,14 @@
 //            while this one is multiplied (double buffering), with blocks
 //            from pick_blocks(level=O4), which halves them so both fit.
 //   O5       as O4 with bf16 tiles in shared memory (scratchpad
-//            reorganization: half the bytes a tile), summed in f32.
+//            reorganization: half the bytes a tile), summed in f32.  At
+//            the blocks the rung picks, ops.body routes bf16 tiles to
+//            tiled_matmul_wgmma.cu, the tensor-core body; this body runs
+//            the bf16 blocks that one does not take.
 //
-// Every rung sums in f32 FMAs, never TF32: a bf16 x bf16 product is exact
-// in f32, so O5 differs from an f32 product of the rounded operands only
-// in summation order.
+// Every rung here sums in f32 FMAs, never TF32: a bf16 x bf16 product is
+// exact in f32, so O5 differs from an f32 product of the rounded
+// operands only in summation order.
 //
 // One body for B6.  256 threads as a 16 x 16 grid (ty, tx); a block tile
 // (bm, bn) is covered by sub-tiles of (16 RM, 16 RN) outputs, RM, RN in
@@ -68,10 +71,9 @@
 // the SMs (64 tiles of 128 x 128 at 1024^3 cover 64 of the 132 SMs, so
 // the rungs are also timed at 4096^3, where 1,024 tiles fill the card)
 // and reuse each staged element 16 RM (or 16 RN) times from registers;
-// they run on the CUDA cores, so O5 cannot reach the bf16 bound.  The
-// tensor cores (mma.sync, then wgmma fed by TMA) are later work (ROADMAP
-// queue B, item 4).  O0..O2 run on one SM by design: the paper's
-// starting point.
+// they run on the CUDA cores, so the f32 rungs stay under the f32 peak
+// (3xTF32 tensor-core math is queued, ROADMAP queue B).  O0..O2 run on
+// one SM by design: the paper's starting point.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,10 +1,12 @@
 """ctypes binding of the CUDA blocked-matmul kernels (``csrc/``).
 
-``launch_tiled`` is B6 (replaces ``repro/kernels/tiled_matmul/kernel.py::
-matmul_pallas``), ``launch_whole`` is B7 (replaces ``matmul_whole``); their
-design and bound are described in ``csrc/tiled_matmul.cu``.  The library
-is built with nvcc on first launch (``kernels/_build.py``), never at
-import.
+``launch_tiled`` is B6's CUDA-core body and ``launch_wgmma`` its
+tensor-core body for bf16 tiles (both replace ``repro/kernels/
+tiled_matmul/kernel.py::matmul_pallas``; ``ops.body`` picks one);
+``launch_whole`` is B7 (replaces ``matmul_whole``).  Their design and
+bound are described in ``csrc/tiled_matmul.cu`` and
+``csrc/tiled_matmul_wgmma.cu``, each built into a library of its own
+with nvcc on first launch (``kernels/_build.py``), never at import.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCES = (Path(__file__).parent / "csrc" / "tiled_matmul.cu",)
+WGMMA_SOURCES = (Path(__file__).parent / "csrc" / "tiled_matmul_wgmma.cu",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +37,15 @@ def _entries():
     whole.argtypes = [_P] * 3 + [_I] * 4 + [_P]
     whole.restype = _I
     return tiled, whole
+
+
+@functools.cache
+def _wgmma_entry():
+    lib = _build.load_library("tiled_matmul_wgmma", WGMMA_SOURCES)
+    fn = lib.tiled_matmul_wgmma_forward
+    fn.argtypes = [_P] * 3 + [_I] * 8 + [_P]
+    fn.restype = _I
+    return fn
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -57,6 +69,21 @@ def launch_tiled(a, b, out, *, bm: int, bn: int, bk: int, grid: int,
                         bm, bn, bk, grid, stages,
                         int(a.dtype == torch.bfloat16), stream)
     _raise_on(err, "tiled_matmul")
+
+
+def launch_wgmma(a, b, out, *, bm: int, bn: int, bk: int, grid: int,
+                 stages: int) -> None:
+    """B6's tensor-core body on the current stream: a (M, K) and b (K, N)
+    bf16, contiguous and 16-byte aligned; out (M, N) f32 contiguous; the
+    blocks divide the shape and meet ``ops.body``'s rule; ``grid`` and
+    ``stages`` as for ``launch_tiled``.  Encodes the two TMA descriptors
+    on the host.  Raises if the launch was refused."""
+    M, K = a.shape
+    N = b.shape[1]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _wgmma_entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
+                         K, bm, bn, bk, grid, stages, stream)
+    _raise_on(err, "tiled_matmul_wgmma")
 
 
 def launch_whole(a, b, out) -> None:

@@ -12,6 +12,13 @@ must fit — the "shrink the cache size" feedback of paper §6).
 raise on anything else, then launch the CUDA kernel for CUDA tensors —
 no fallback — or run the plain version (``ref.py``) for CPU tensors.
 Each kernel launch adds one to its wrapper's ``launches``.
+
+B6 has two bodies.  ``body`` picks one from dtype, shape and blocks
+alone, before any launch: bf16 tiles the tensor cores take (the O5 rung
+at the picked blocks) run ``csrc/tiled_matmul_wgmma.cu``, everything
+else ``csrc/tiled_matmul.cu``.  This is routing, not a fallback: each
+body counts its launches in ``matmul_tiled.body_launches``, and a body
+that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from repro_torch.kernels.tiled_matmul.ref import matmul_ref, matmul_tiled_ref
 SMEM_BUDGET = H100_SXM.smem_per_block
 
 _DTYPES = (torch.float32, torch.bfloat16)
+BODIES = ("cuda_core", "wgmma")
 
 
 def _fit(dim: int, want: int) -> int:
@@ -88,6 +96,29 @@ def pick_o1_blocks(M: int, N: int, K: int, *, elem_bytes: int = 4) -> tuple:
     return bm, bn
 
 
+def wgmma_smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Shared memory of the tensor-core body's two-slot ring: per slot
+    A's (bm x bk) tile and B's (bk x bn) tile as 64-column TMA boxes,
+    bf16, plus 1 KB of alignment and two mbarriers a slot."""
+    b_cols = -(-bn // 64) * 64
+    return 2 * (bm * bk + bk * b_cols) * 2 + 1024 + 2 * 16
+
+
+def body(dtype, M: int, N: int, K: int, bm: int, bn: int, bk: int) -> str:
+    """Which B6 body runs (M, K) @ (K, N) at blocks (bm, bn, bk):
+    ``"wgmma"`` (tensor cores, TMA) for bf16 with bm 64 or 128 (one or
+    two warpgroups of 64 rows), bn a multiple of 16 up to 256 (the MMA's
+    widths), bk a multiple of 64 (whole 128-byte swizzle boxes), N and
+    K multiples of 8 (TMA's 16-byte row strides) and a two-slot ring that
+    fits a block's shared memory; ``"cuda_core"`` otherwise."""
+    if (dtype == torch.bfloat16 and bm in (64, 128) and bn % 16 == 0
+            and 16 <= bn <= 256 and bk % 64 == 0 and N % 8 == 0
+            and K % 8 == 0
+            and wgmma_smem_bytes(bm, bn, bk) <= SMEM_BUDGET):
+        return "wgmma"
+    return "cuda_core"
+
+
 def _check(a, b, *, blocks=None) -> None:
     """Raise unless a (M, K), b (K, N) are operands of B6/B7 (and
     ``blocks`` = (bm, bn, bk) divide M, N, K)."""
@@ -125,17 +156,25 @@ def matmul_tiled(a, b, *, bm: int, bn: int, bk: int, parallel_mn: bool,
     (bk = K is the O1 structure, K whole per tile).  ``parallel_mn``
     (O3+) gives each (M, N) tile a block of its own; otherwise one block
     walks them in order.  ``double_buffer`` (O4+) keeps the next
-    k-block's copies in flight."""
+    k-block's copies in flight.  ``body`` picks the kernel."""
     _check(a, b, blocks=(bm, bn, bk))
     if not _on_card(a):
         return matmul_tiled_ref(a, b, bk=bk)
-    M, N = a.shape[0], b.shape[1]
+    M, K = a.shape
+    N = b.shape[1]
+    which = body(a.dtype, M, N, K, bm, bn, bk)
     a, b = a.contiguous(), b.contiguous()
+    if which == "wgmma":
+        # TMA reads from 16-byte aligned addresses; a view that starts
+        # elsewhere is copied (the body stays the same).
+        a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    kernel.launch_tiled(a, b, out, bm=bm, bn=bn, bk=bk,
-                        grid=(M // bm) * (N // bn) if parallel_mn else 1,
-                        stages=2 if double_buffer else 1)
+    launch = kernel.launch_wgmma if which == "wgmma" else kernel.launch_tiled
+    launch(a, b, out, bm=bm, bn=bn, bk=bk,
+           grid=(M // bm) * (N // bn) if parallel_mn else 1,
+           stages=2 if double_buffer else 1)
     matmul_tiled.launches += 1
+    matmul_tiled.body_launches[which] += 1
     return out
 
 
@@ -154,6 +193,7 @@ def matmul_whole(a, b):
 
 
 matmul_tiled.launches = 0
+matmul_tiled.body_launches = dict.fromkeys(BODIES, 0)
 matmul_whole.launches = 0
 
 

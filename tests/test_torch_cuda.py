@@ -1,6 +1,8 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (B1 decode, B2
 multi-query, both on wide and narrow int8 / fp8 pools, B3 flash
-attention, B4 RWKV-6 WKV, B5 Mamba-2 SSD, B6/B7 tiled matmul) against
+attention in both bodies — bf16 on mma.sync, f32 on the CUDA cores —,
+B4 RWKV-6 WKV, B5 Mamba-2 SSD, B6/B7 tiled matmul, B6 in both bodies —
+bf16 tiles on wgmma fed by TMA, the rest on the CUDA cores) against
 their plain PyTorch versions on the card.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
@@ -240,15 +242,49 @@ def test_flash_attention_kernel_matches_plain(dims, causal, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _flash_case(*dims, dtype=dtype)
     before = fops.flash_attention.launches
+    bodies = dict(fops.flash_attention.body_launches)
     got = fops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fops.flash_attention.launches == before + 1
+    bodies[fops.body(dtype)] += 1
+    assert fops.flash_attention.body_launches == bodies
     want = flash_attention_ref(q, k, v, causal=causal).float()
     assert torch.isfinite(got).all()
     err = (got.float() - want).abs()
     row = want.abs().amax(dim=-1, keepdim=True)
     rtol = 1.6e-2 if dtype == torch.bfloat16 else 1e-5
     assert (err <= rtol * row).all(), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 17, 20, 32, 64, 128, 192, 256])
+@pytest.mark.parametrize("dims,causal", [
+    ((2, 1000, 1000, 4, 2), True),     # ragged S, GQA 2
+    ((2, 64, 700, 6, 2), True),        # rectangular offset, GQA 3
+    ((1, 300, 300, 4, 4), False),      # non-causal, G = 1
+])
+def test_flash_attention_mma_body_at_every_width(D, dims, causal):
+    """The bf16 tensor-core body at every compiled width (16 and 17 pad
+    to 32, 20 rows of 40 B take the element copies, 17 the scalar
+    stores; 192 and 256 take the narrower key tile) against the plain
+    version: within two bf16 ulps of each row's largest output (P's
+    rounding to bf16 is a relative 2^-9 on top of it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = _flash_case(*dims, D, dtype=torch.bfloat16, seed=D)
+    before = dict(fops.flash_attention.body_launches)
+    got = fops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.body_launches == {
+        **before, "mma": before["mma"] + 1}
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    assert torch.isfinite(got).all()
+    err = (got.float() - want).abs()
+    row = want.abs().amax(dim=-1, keepdim=True)
+    assert (err <= 1.6e-2 * row).all(), float((err / row).max())
 
 
 @pytest.mark.cuda
@@ -600,3 +636,88 @@ def test_matmul_reads_views_and_refuses_what_it_cannot_take():
     big = torch.ones(512, 512, device="cuda")
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         mops.matmul(big, big, 4, blocks=(256, 256, 256))
+
+
+# The tensor-core body of B6 at the blocks the O5 rung picks (128^3 at
+# 1024^3 and 4096^3), at explicit eligible blocks on a non-square shape
+# (every wgmma width: bn 64, 128 and 256 one instruction; 48, 96 and 192
+# three of 16, 32 and 64), at bm = 64 (one consumer warpgroup), with one
+# stage and with one block walking every tile.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks,parallel_mn,double_buffer", [
+    ((1024, 1024, 1024), None, True, True),
+    ((4096, 4096, 4096), None, True, True),
+    ((256, 384, 512), (64, 128, 64), True, True),
+    ((256, 384, 512), (128, 256, 64), True, True),
+    ((256, 384, 576), (64, 48, 64), True, True),
+    ((256, 384, 576), (128, 96, 128), True, True),
+    ((256, 384, 576), (64, 192, 64), True, True),
+    ((256, 384, 512), (128, 64, 128), True, False),
+    ((256, 384, 512), (64, 128, 128), False, True),
+])
+def test_matmul_wgmma_body_matches_plain(shape, blocks, parallel_mn,
+                                         double_buffer):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.core.optlevel import OptLevel
+    from repro_torch.kernels.tiled_matmul import ops as mops
+    from repro_torch.kernels.tiled_matmul.ref import matmul_tiled_ref
+
+    M, K, N = shape
+    if blocks is None:
+        blocks = mops.pick_blocks(M, N, K, level=OptLevel.O5, elem_bytes=2)
+        assert blocks == (128, 128, 128)
+    assert mops.body(torch.bfloat16, M, N, K, *blocks) == "wgmma"
+    a, b = (torch.tensor(x, device="cuda").to(torch.bfloat16)
+            for x in _matmul_case(M, K, N, seed=14))
+    before = dict(mops.matmul_tiled.body_launches)
+    bm, bn, bk = blocks
+    got = mops.matmul_tiled(a, b, bm=bm, bn=bn, bk=bk,
+                            parallel_mn=parallel_mn,
+                            double_buffer=double_buffer)
+    torch.cuda.synchronize()
+    assert mops.matmul_tiled.body_launches == {
+        **before, "wgmma": before["wgmma"] + 1}
+    _matmul_close(got, matmul_tiled_ref(a, b, bk=bk))
+
+
+@pytest.mark.cuda
+def test_matmul_routes_o5_to_wgmma_and_the_f32_rungs_to_cuda_cores():
+    """ops.matmul at O3..O5 on the card: one launch a call, O5 on the
+    tensor-core body, O3 and O4 on the CUDA-core body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.tiled_matmul import ops as mops
+
+    a, b = (torch.tensor(x, device="cuda")
+            for x in _matmul_case(512, 512, 512, seed=15))
+    for lvl, which in ((3, "cuda_core"), (4, "cuda_core"), (5, "wgmma")):
+        before = dict(mops.matmul_tiled.body_launches)
+        mops.matmul(a, b, lvl)
+        torch.cuda.synchronize()
+        assert mops.matmul_tiled.body_launches == {
+            **before, which: before[which] + 1}
+
+
+@pytest.mark.cuda
+def test_matmul_wgmma_body_takes_an_unaligned_view():
+    """A contiguous bf16 view that starts 2 bytes past an allocation is
+    copied to an aligned tensor for TMA; the wgmma body still runs it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.tiled_matmul import ops as mops
+    from repro_torch.kernels.tiled_matmul.ref import matmul_tiled_ref
+
+    a, b = (torch.tensor(x, device="cuda").to(torch.bfloat16)
+            for x in _matmul_case(128, 128, 128, seed=16))
+    base = torch.empty(a.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    view = base[1:].view(128, 128)
+    view.copy_(a)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    before = dict(mops.matmul_tiled.body_launches)
+    got = mops.matmul_tiled(view, b, bm=128, bn=128, bk=64,
+                            parallel_mn=True, double_buffer=True)
+    torch.cuda.synchronize()
+    assert mops.matmul_tiled.body_launches == {
+        **before, "wgmma": before["wgmma"] + 1}
+    _matmul_close(got, matmul_tiled_ref(a, b, bk=64))

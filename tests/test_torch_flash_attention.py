@@ -173,8 +173,27 @@ def test_bf16_gradients_keep_the_input_dtype():
 
 def test_cpu_never_counts_a_kernel_launch():
     before = ops.flash_attention.launches
+    bodies = dict(ops.flash_attention.body_launches)
     _port(_case(1, 16, 16, 2, 1, 16), True)
     assert ops.flash_attention.launches == before
+    assert ops.flash_attention.body_launches == bodies
+
+
+def test_bodies_are_routed_by_dtype():
+    """bf16 runs the tensor-core body, f32 the CUDA-core body (TF32
+    tensor cores would not hold f32's 1e-5); nothing else is taken."""
+    assert ops.body(torch.bfloat16) == "mma"
+    assert ops.body(torch.float32) == "cuda_core"
+    assert set(ops.flash_attention.body_launches) == {"mma", "cuda_core"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_counts_no_launch_of_either_body(dtype):
+    before = (ops.flash_attention.launches,
+              dict(ops.flash_attention.body_launches))
+    _port(_case(1, 16, 16, 2, 1, 16, seed=11), True, dtype)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention.body_launches) == before
 
 
 @pytest.mark.parametrize("shapes,dtypes,err", [

@@ -174,3 +174,61 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
     else:
         with pytest.raises(ValueError, match="cuda or cpu"):
             ops.matmul_whole(a.to("meta"), b.to("meta"))
+
+
+# B6's two bodies: ``ops.body`` routes by dtype, shape and blocks alone.
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_o5_at_the_picked_blocks_runs_the_tensor_core_body(n):
+    args = ops.rung(OptLevel.O5, n, n, n)
+    assert (args["dtype"], args["bm"], args["bn"], args["bk"]) == (
+        torch.bfloat16, 128, 128, 128)
+    assert ops.body(args["dtype"], n, n, n, args["bm"], args["bn"],
+                    args["bk"]) == "wgmma"
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+@pytest.mark.parametrize("lvl", [1, 2, 3, 4])
+def test_f32_rungs_run_the_cuda_core_body(n, lvl):
+    args = ops.rung(OptLevel(lvl), n, n, n)
+    assert args["dtype"] == torch.float32
+    assert ops.body(args["dtype"], n, n, n, args["bm"], args["bn"],
+                    args["bk"]) == "cuda_core"
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    ((32, 32, 32), None),                 # bm 32: less than a warpgroup
+    ((105, 105, 105), None),              # odd blocks
+    ((105, 105, 105), (35, 21, 15)),
+    ((256, 256, 512), (256, 128, 64)),    # bm 256: over two warpgroups
+    ((128, 288, 128), (128, 288, 64)),    # bn over 256
+    ((128, 128, 128), (128, 128, 32)),    # bk not a whole swizzle box
+    ((128, 132, 128), (128, 128, 64)),    # N not a multiple of 8
+    ((128, 128, 132), (128, 128, 64)),    # K not a multiple of 8
+    ((128, 256, 512), (128, 256, 512)),   # a ring over shared memory
+])
+def test_ineligible_bf16_blocks_run_the_cuda_core_body(shape, blocks):
+    M, N, K = shape
+    if blocks is None:
+        args = ops.rung(OptLevel.O5, M, N, K)
+        blocks = (args["bm"], args["bn"], args["bk"])
+    bm, bn, bk = blocks
+    assert ops.body(torch.bfloat16, M, N, K, bm, bn, bk) == "cuda_core"
+
+
+def test_wgmma_ring_fits_at_the_main_blocks_and_not_past_the_budget():
+    assert ops.wgmma_smem_bytes(128, 128, 128) == 132_128
+    assert ops.wgmma_smem_bytes(128, 256, 64) == 99_360
+    # B's boxes are 64 columns wide: bn 16 stages as much as bn 64.
+    assert ops.wgmma_smem_bytes(64, 16, 64) == ops.wgmma_smem_bytes(64, 64,
+                                                                    64)
+    assert ops.wgmma_smem_bytes(128, 256, 512) > ops.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("lvl", [3, 5])
+def test_cpu_call_counts_no_launch_of_either_body(lvl):
+    a, b = (torch.tensor(x) for x in _inputs(128, 128, 128, seed=6))
+    before = (ops.matmul_tiled.launches, dict(ops.matmul_tiled.body_launches))
+    ops.matmul(a, b, OptLevel(lvl))
+    assert (ops.matmul_tiled.launches,
+            ops.matmul_tiled.body_launches) == before
+    assert set(before[1]) == {"cuda_core", "wgmma"}
