@@ -15,7 +15,9 @@ Phases (any failure raises, and the script exits non-zero):
               H=32, KV=8, D=128, T=16, ragged lengths 1..2048, shuffled
               pool rows, NaN in the NULL block, unused rows and stale
               tails) and at edges (length 1, lengths a multiple of T,
-              G=1, f32 pools, a zero-length slot);
+              G=1, f32 pools, a zero-length slot), each case's body
+              logged and asserted (bf16 q: the split mma.sync body; f32
+              q or pools: the CUDA-core body);
      3b.    — B2, the multi-query kernel (same source), against its plain
               version at the slice's shapes (chunked prefill B=1, Q=64
               from starts 0, 37 and 960, a padded final chunk past the
@@ -27,6 +29,8 @@ Phases (any failure raises, and the script exits non-zero):
               one PyTorch library call (``scaled_dot_product_attention``
               on a pre-gathered dense view — a yardstick the port never
               calls), the wrapper's host time per call, and the bound;
+              beside them the CUDA-core body's time at the same shape
+              and the split body's at partitions of 64..512 positions;
      3g.    — the quantized branch of B1 and B2 (B1q, B2q: int8 and fp8
               e4m3 pools with (row, kv head) f32 scales, bf16 q) against
               the plain versions at the main path's shapes (B1 decode;
@@ -35,7 +39,8 @@ Phases (any failure raises, and the script exits non-zero):
               unused rows and their scale rows, stale tails and a
               zero-scale row; every output bitwise equal to the kernel on
               the pool dequantized with ``kvquant.dequantize``; device
-              times of the kernel, the plain version and
+              times of the kernel (and of the CUDA-core body and the
+              split body's partition sizes), the plain version and
               ``scaled_dot_product_attention`` on the pre-dequantized
               gathered view, the wrapper's host time, and the bound;
      3c.    — B3, the flash-attention kernel, against its plain version
@@ -83,11 +88,12 @@ Phases (any failure raises, and the script exits non-zero):
               budget, which must raise); for each rung the blocks it ran,
               device times of the kernel, the plain version and
               ``torch.matmul`` (f32 with TF32 off; bf16 at O5), the
-              wrapper's host time, and the bound (f32 rungs at the 67
-              TFLOP/s f32 peak).  Every case logs the B6 body that ran;
-              O5 at 1024^3 and 4096^3 must run the wgmma body, whose
-              time is read beside the CUDA-core body's at the same
-              blocks;
+              wrapper's host time, and the bound (f32 rungs: 3xTF32's
+              three tensor-core products at the 495 TFLOP/s TF32 peak).
+              Every case logs the B6 body that ran; O5 at 1024^3 and
+              4096^3 must run the wgmma body, O3 and O4 the 3xTF32 body,
+              O1 and O2 the CUDA-core body; each tensor-core body's time
+              is read beside the CUDA-core body's at the same blocks;
   4. ladder — smoke-width qwen3-8b on the card at O2, O4, O5, O6-gather,
               O6-kernel, with chunked prefill (chunks 3 and 8) on O5,
               O6-gather and O6-kernel, and at O7 with the smollm-360m
@@ -102,7 +108,9 @@ Phases (any failure raises, and the script exits non-zero):
               step over a shared random KV prefix, logits compared tick by
               tick, at 2 layers (tight) and 36 (held to the drift of the
               kernel's plain version); (b) ``serve_demo`` with prompts fed
-              a token per tick, B1 launches = layers x ticks; (c) a
+              a token per tick, B1 launches = layers x ticks, every
+              B1/B2 launch of (b), (d), (e) and (f) on the split body
+              (asserted); (c) a
               ``torch.profiler`` reading of device time per tick;
               (d) chunked prefill at ``prefill_chunk=64``: TTFT in ticks
               and ms, B2 launches = layers x chunk dispatches and B1
@@ -162,10 +170,12 @@ Phases (any failure raises, and the script exits non-zero):
               one step;
   9. paper  — the paper's ladder on the card: ``ops.matmul(a, b, level)``
               for O0..O5 at 1024^3 and O3..O5 at 4096^3, one B7 or B6
-              launch a call (asserted; O5 on B6's wgmma body, O1..O4 on
-              its CUDA-core body), each held to its plain version;
-              the Fig. 4 analogue (device ms per rung, speedup over O0
-              and over the rung before, beside the analytic model's);
+              launch a call (asserted; O5 on B6's wgmma body, O3 and O4
+              on its 3xTF32 body, O1 and O2 on its CUDA-core body), each
+              held to its plain version; the Fig. 4 analogue (device ms
+              per rung, speedup over O0 and over the rung before, beside
+              the analytic model's), with O2 -> O3 read in two steps
+              (PE duplication on the CUDA cores, then the tensor cores);
               ``machsuite.gemm.run`` at every level on the card at 32 x
               32, held to the float64 oracle.
 
@@ -192,14 +202,19 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (dense): HBM bytes/s and bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-# f32 FLOP/s outside the tensor cores (H100 SXM data sheet, 67 TFLOP/s):
-# the bound of B6's f32 rungs and of B7, which sum f32 FMAs.
-F32_FLOPS = 67e12
+# Dense TF32 FLOP/s of the tensor cores (H100 SXM data sheet, 495
+# TFLOP/s).  The least time the card needs for an f32 matmul is 3xTF32's
+# three tensor-core products at this rate (the f32 CUDA-core peak, 67
+# TFLOP/s, is slower): the bound of B6's f32 rungs and of B7.
+TF32_FLOPS = 495e12
 # Clock cycles of the spin kernel that holds the device ahead of a timed
 # launch: about 5 ms at the H100's 1.98 GHz boost clock.
 SPIN_CYCLES = 10_000_000
 
 KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+# The tensor-core body of B1/B2/B1q/B2q (bf16 q, the main path's).
+SPLIT_SOURCE = ("src/repro_torch/kernels/paged_attention/csrc/"
+                "paged_attention_split.cu")
 B1_REPLACES = "src/repro/kernels/paged_attention/kernel.py:318"
 B2_REPLACES = "src/repro/kernels/paged_attention/kernel.py:254"
 # The quantized branch of both: _dequant and the ks/vs scale operands.
@@ -265,6 +280,8 @@ MAMBA_TRAIN_TOL = {64: {"loss": 1e-3, "grad_norm": 1e-2},
 B6_SOURCE = "src/repro_torch/kernels/tiled_matmul/csrc/tiled_matmul.cu"
 B6_WGMMA_SOURCE = ("src/repro_torch/kernels/tiled_matmul/csrc/"
                    "tiled_matmul_wgmma.cu")
+B6_TF32X3_SOURCE = ("src/repro_torch/kernels/tiled_matmul/csrc/"
+                    "tiled_matmul_tf32x3.cu")
 B6_REPLACES = "src/repro/kernels/tiled_matmul/kernel.py:63"
 B7_REPLACES = "src/repro/kernels/tiled_matmul/kernel.py:121"
 # |kernel - plain| <= MATMUL_TOL * max|plain| for B6 and B7 at every
@@ -401,8 +418,14 @@ def check_case(name, case, kind, *, prefill=False):
     fn, plain = ((ops.paged_prefill_attention,
                   ref.paged_prefill_attention_ref) if prefill else
                  (ops.paged_attention, ref.paged_attention_ref))
+    which = ops.body(case[0].dtype, case[1].dtype, case[0].shape[-1])
+    before = dict(fn.body_launches)
     out = paged_call(fn, case)
     torch.cuda.synchronize()
+    if fn.body_launches != {**before, which: before[which] + 1}:
+        raise AssertionError(f"kernel case {name}: bodies "
+                             f"{fn.body_launches}, before {before}, want "
+                             f"one {which}")
     got, want = out.float(), plain(*case).float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"kernel case {name}: non-finite output")
@@ -416,7 +439,7 @@ def check_case(name, case, kind, *, prefill=False):
             f"kernel case {name}: {int(bad.sum())} elements beyond "
             f"{atol} + {rtol}*|plain| (max err {float(err.max())})")
     tag = ("B2" if prefill else "B1") + ("q" if len(case) == 7 else "")
-    log(f"[kernel] {tag} {name}: max |kernel - plain| "
+    log(f"[kernel] {tag} {name}, {which} body: max |kernel - plain| "
         f"= {float(err.max()):.3e} (tolerance {atol} + {rtol}*|plain|"
         f"{' of the row' if prefill else ''})")
     return float(err.max()), out
@@ -468,18 +491,21 @@ def phase_kernel() -> tuple:
     out = {
         "name": "paged_attention",
         "route": "cuda",
-        "source": KERNEL_SOURCE,
+        "source": SPLIT_SOURCE,
         "replaces": B1_REPLACES,
         "launches": None,
         "max_abs_err": err,
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "wrapper_host_ms")},
+                             "library_ms", "wrapper_host_ms",
+                             "cuda_core_ms", "p", "p_sweep")},
+        "cuda_core_source": KERNEL_SOURCE,
     }
     log(f"[kernel] B1 main path: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, library (sdpa on a gathered view) "
         f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP); the "
         f"wrapper's host time per call {t['wrapper_host_ms']:.4f} ms")
+    log_bodies("B1 main path", t)
     return out, main
 
 
@@ -506,6 +532,78 @@ def wide_case(case):
             lens)
 
 
+# The split body's partition sizes that phases 3, 3b and 3g time beside
+# the one ops.partition_positions picks (scripts/paged_split_ab.py times
+# them in turns).
+SPLIT_PS = (64, 128, 256, 512)
+
+
+def paged_variants(case):
+    """({variant: launch}, out) for one paged case (3-D q is B1): the
+    split body at each P of ``SPLIT_PS`` and the CUDA-core body, launched
+    straight through the binding into ``out`` (not routed, not
+    counted)."""
+    import torch
+    from repro_torch.kernels.paged_attention import kernel, ops, ref
+
+    q, kp, vp, tables, lens = case[:5]
+    ks, vs = case[5:] if len(case) == 7 else (None, None)
+    q4 = q if q.dim() == 4 else q[:, None]
+    out = torch.empty_like(q4)
+    scale = ref.kernel_scale(q.shape[-1], q.dtype)
+    Q = q4.shape[1]
+    rows = ops.row_tile(q4.shape[2] // kp.shape[2] * Q)
+    runs = {f"split P={P}": (lambda P=P: kernel.launch_split(
+        q4, kp, vp, ks, vs, tables, lens, out, scale, Q=Q, rows=rows, P=P))
+        for P in SPLIT_PS}
+    core = kernel.launch if q.dim() == 3 else kernel.launch_prefill
+    out3 = out[:, 0] if q.dim() == 3 else out
+    runs["cuda_core"] = lambda: core(q, kp, vp, ks, vs, tables, lens, out3,
+                                     scale)
+    return runs, out
+
+
+def body_timings(case) -> dict:
+    """For a case the split body takes: the CUDA-core body's device time
+    on it (``cuda_core_ms``: the body the split body replaced) and the
+    split body's at each P of ``SPLIT_PS`` (``p_sweep``), each output
+    held to the plain version at the bf16 tolerance."""
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    q = case[0]
+    if ops.body(q.dtype, case[1].dtype, q.shape[-1]) != "split_mma":
+        return {}
+    plain = (ref.paged_attention_ref if q.dim() == 3
+             else ref.paged_prefill_attention_ref)
+    want = plain(*case).float()
+    want = want[:, None] if q.dim() == 3 else want
+    atol, rtol = TOL["bf16"]
+    runs, out = paged_variants(case)
+    res = {"p": ops.partition_positions(case[1].shape[1], q.shape[-1]),
+           "p_sweep": {}}
+    for k, fn in runs.items():
+        out.fill_(float("nan"))
+        fn()
+        err = (out.float() - want).abs()
+        if not (err <= atol + rtol * want.abs().amax(-1, keepdim=True)).all():
+            raise AssertionError(f"{k}: max |err| {float(err.max())} over "
+                                 f"the tolerance")
+        t = time_ms(fn, reps=15)
+        if k == "cuda_core":
+            res["cuda_core_ms"] = t
+        else:
+            res["p_sweep"][int(k.split("=")[1])] = t
+    return res
+
+
+def log_bodies(what: str, t: dict) -> None:
+    if t.get("p_sweep"):
+        log(f"[kernel] {what}: the CUDA-core body {t['cuda_core_ms']:.4f} ms; "
+            f"the split body at P = " + ", ".join(
+                f"{P}: {ms:.4f}" for P, ms in t["p_sweep"].items())
+            + f" ms (P = {t['p']} routed)")
+
+
 def time_decode(case) -> dict:
     """B1's kernel, plain and library times on one case (wide, or narrow
     with its scales), the wrapper's host time, and the bound.  The
@@ -530,6 +628,7 @@ def time_decode(case) -> dict:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q4, kd, vd, attn_mask=mask, enable_gqa=True)),
     }
+    res.update(body_timings(case))
     n_tok = int(lens.sum())
     blocks = int(sum(-(-int(x) // T) for x in lens.tolist()))
     nbytes = (q.numel() * q.element_size() * 2           # q in, out
@@ -586,6 +685,7 @@ def time_prefill(case) -> dict:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qh, kd, vd, attn_mask=mask, enable_gqa=True)),
     }
+    res.update(body_timings(case))
     span = lim.max(dim=1).values.clamp(min=0)                 # per slot
     n_tok = int(span.sum())
     blocks = int(sum(-(-int(x) // kp.shape[1]) for x in span))
@@ -676,17 +776,14 @@ def phase_prefill_kernel(b1_main) -> dict:
     out = {
         "name": "paged_prefill_attention",
         "route": "cuda",
-        "source": KERNEL_SOURCE,
+        "source": SPLIT_SOURCE,
         "replaces": B2_REPLACES,
         "launches": None,
         "max_abs_err": max(errs),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "wrapper_host_ms": main["wrapper_host_ms"],
-        "shape": main["shape"],
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "wrapper_host_ms",
+                                "cuda_core_ms", "p", "p_sweep", "shape")},
+        "cuda_core_source": KERNEL_SOURCE,
         "verify": vt,
     }
     for what, t in (("chunk", main), ("verify", vt)):
@@ -696,6 +793,7 @@ def phase_prefill_kernel(b1_main) -> dict:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
             f"{t['flops']} FLOP); the wrapper's host time per call "
             f"{t['wrapper_host_ms']:.4f} ms")
+        log_bodies(f"B2 {what}", t)
     return out
 
 
@@ -810,15 +908,17 @@ def phase_quant_kernel() -> dict:
                 f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
                 f"{t['flops']} FLOP); the wrapper's host time per call "
                 f"{t['wrapper_host_ms']:.4f} ms")
+            log_bodies(f"{what} {kvd}", t)
         del main, chunk, verify
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "wrapper_host_ms")
+            "wrapper_host_ms", "cuda_core_ms", "p", "p_sweep")
     out = []
     for name, which, replaces in (
             ("paged_attention_quantized", "b1", BQ_REPLACES),
             ("paged_prefill_attention_quantized", "b2", BQ_REPLACES)):
         t = res["int8"][which]
-        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        entry = {"name": name, "route": "cuda", "source": SPLIT_SOURCE,
+                 "cuda_core_source": KERNEL_SOURCE,
                  "replaces": replaces, "launches": None,
                  "max_abs_err": max(res[k][f"{which}_err"] for k in res),
                  **{k: t[k] for k in keys}, "kv_dtype": "int8",
@@ -1396,7 +1496,24 @@ def rung_body(level: int, ac, bc, blk) -> str:
     if level == 0:
         return "B7"
     return ops.body(ac.dtype, ac.shape[0], bc.shape[1], ac.shape[1],
-                    blk["bm"], blk["bn"], blk["bk"])
+                    blk["bm"], blk["bn"], blk["bk"],
+                    parallel_mn=blk["parallel_mn"],
+                    double_buffer=blk["double_buffer"])
+
+
+def cuda_core_at(ac, bc, blk):
+    """A launch of B6's CUDA-core body at a rung's blocks, grid and
+    stages, straight through the binding (not the router, not counted):
+    the body a tensor-core rung ran before it took the tensor cores."""
+    import torch
+    from repro_torch.kernels.tiled_matmul import kernel
+
+    M, N = ac.shape[0], bc.shape[1]
+    c = torch.empty((M, N), dtype=torch.float32, device="cuda")
+    grid = (M // blk["bm"]) * (N // blk["bn"]) if blk["parallel_mn"] else 1
+    return c, lambda: kernel.launch_tiled(
+        ac, bc, c, bm=blk["bm"], bn=blk["bn"], bk=blk["bk"], grid=grid,
+        stages=2 if blk["double_buffer"] else 1)
 
 
 def check_matmul(name: str, level: int, a, b, blocks=None) -> dict:
@@ -1432,11 +1549,11 @@ def time_rung(level: int, a, b) -> dict:
     """Device times of one rung's kernel, plain version and library call,
     the wrapper's host time, and the bound (bytes: operands as the
     kernel reads them once and the f32 output written once; operations:
-    2 M N K at the f32 peak, or the bf16 peak at O5); where the rung
-    runs B6's wgmma body, also the CUDA-core body's time at its blocks."""
-    import torch
-    from repro_torch.kernels.tiled_matmul import kernel
-
+    2 M N K at the bf16 peak at O5, and for the f32 rungs 3 x 2 M N K at
+    the TF32 peak, 3xTF32's three tensor-core products, the least time
+    the card needs for the same f32 work); where the rung runs a
+    tensor-core body of B6 (wgmma, tf32x3), also the CUDA-core body's
+    time at its blocks, grid and stages."""
     kern, plain, lib, (ac, bc), blk = rung_call(level, a, b)
     which = rung_body(level, ac, bc, blk)
     slow = level in SLOW_RUNGS
@@ -1446,27 +1563,21 @@ def time_rung(level: int, a, b) -> dict:
     nbytes = (ac.numel() * ac.element_size() + bc.numel() * bc.element_size()
               + M * N * 4)
     flops = 2 * M * N * K
-    bound_ms, bound_by = bound(nbytes, flops,
-                               BF16_FLOPS if level >= 5 else F32_FLOPS)
+    bound_ms, bound_by = (bound(nbytes, flops) if level >= 5 else
+                          bound(nbytes, 3 * flops, TF32_FLOPS))
     out = {"ms": time_ms(kern, reps=reps, warmup=warm),
            "plain_ms": time_ms(plain, reps=5 if slow else 10, warmup=1),
            "library_ms": time_ms(lib, reps=10, warmup=2),
            "wrapper_host_ms": host_ms(kern, reps=3 if slow else 200),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "flops": flops, "blocks": blk, "body": which}
-    if which == "wgmma":
-        # The CUDA-core body at the same blocks, launched directly (not
-        # through the router, not counted): the time the rung had before
-        # it took the tensor cores.
-        c = torch.empty((M, N), dtype=torch.float32, device="cuda")
-        grid = (M // blk["bm"]) * (N // blk["bn"])
-        out["cuda_core_ms"] = time_ms(lambda: kernel.launch_tiled(
-            ac, bc, c, bm=blk["bm"], bn=blk["bn"], bk=blk["bk"], grid=grid,
-            stages=2), reps=10)
+    if which in ("wgmma", "tf32x3"):
+        c, core = cuda_core_at(ac, bc, blk)
+        out["cuda_core_ms"] = time_ms(core, reps=10)
         want = plain()
         err = float((c - want).abs().max())
         if not err <= MATMUL_TOL * float(want.abs().max()):
-            raise AssertionError(f"O{level} CUDA-core body at the wgmma "
+            raise AssertionError(f"O{level} CUDA-core body at the {which} "
                                  f"blocks off its plain version by {err}")
     return out
 
@@ -1522,7 +1633,7 @@ def phase_matmul_kernel() -> tuple:
     log(f"[kernel] B6/B7: {len(errs)} cases within {MATMUL_TOL} of max "
         f"|plain|; worst {worst['rel_err']:.3e} "
         f"({max(errs, key=lambda k: errs[k]['rel_err'])})")
-    for body in ("wgmma", "cuda_core", "B7"):
+    for body in ("wgmma", "tf32x3", "cuda_core", "B7"):
         keys = [k for k, r in errs.items() if r["body"] == body]
         if not keys:
             continue
@@ -1530,10 +1641,14 @@ def phase_matmul_kernel() -> tuple:
         log(f"[kernel] B6/B7 {body}: {len(keys)} cases, worst "
             f"{errs[w]['rel_err']:.3e} of max |plain| ({w}); cases: "
             + ", ".join(keys))
-    for key in (f"{n}^3 O5", f"{LADDER_BIG}^3 O5"):
-        if errs[key]["body"] != "wgmma":
+    for key, want in ((f"{n}^3 O5", "wgmma"), (f"{LADDER_BIG}^3 O5", "wgmma"),
+                      (f"{n}^3 O3", "tf32x3"), (f"{n}^3 O4", "tf32x3"),
+                      (f"{LADDER_BIG}^3 O3", "tf32x3"),
+                      (f"{LADDER_BIG}^3 O4", "tf32x3"),
+                      (f"{n}^3 O1", "cuda_core"), (f"{n}^3 O2", "cuda_core")):
+        if errs[key]["body"] != want:
             raise AssertionError(f"{key} ran B6's {errs[key]['body']} body, "
-                                 f"not the wgmma body")
+                                 f"not the {want} body")
 
     rungs = {}
     for level in range(6):
@@ -1568,6 +1683,7 @@ def phase_matmul_kernel() -> tuple:
                [k for k in main_keys if not k.endswith("O0")],
                B6_WGMMA_SOURCE)
     b6["cuda_core_source"] = B6_SOURCE
+    b6["tf32x3_source"] = B6_TF32X3_SOURCE
     b6["rungs"] = {k: v for k, v in rungs.items() if not k.startswith("O0")}
     b6["errors"] = {k: v for k, v in errs.items() if not k.endswith("O0")}
     b7 = entry("matmul_whole", B7_REPLACES, f"O0 {n}^3", [f"{n}^3 O0"],
@@ -1797,7 +1913,8 @@ def profile_ticks(model, params, reqs, *, B, max_seq, T, pool_blocks,
             by_name[ev.key] = us / 1e3 / ticks
             launched += ev.count
     busy = sum(by_name.values())
-    paged = sum(v for k, v in by_name.items() if "paged_rows_kernel" in k)
+    paged = sum(v for k, v in by_name.items()
+                if "paged_rows_kernel" in k or "paged_split_kernel" in k)
     return {"ticks": ticks, "after_ticks": warm, "kv_dtype": kv_dtype,
             "wall_ms_per_tick": wall_ms,
             "device_ms_per_tick": busy if busy else None,
@@ -2060,6 +2177,7 @@ def phase_full(card: str) -> dict:
                      params=params, **kw)
     launches = ops.paged_attention.launches
     b2_launches = ops.paged_prefill_attention.launches
+    bodies = paged_bodies("(b)")
     no_training_kernels("(b)")
     peak = torch.cuda.max_memory_allocated()
     if out["paged_attn"] != "kernel":
@@ -2087,14 +2205,15 @@ def phase_full(card: str) -> dict:
         "wall_s": out["wall_s"], "tok_per_s": out["tok_per_s"],
         "ms_per_tick": out["wall_s"] / out["ticks"] * 1e3,
         "kernel_launches": launches, "b2_launches": b2_launches,
-        "peak_bytes": peak,
+        "body_launches": bodies, "peak_bytes": peak,
         "pool": out["pool"], "teacher_forced": tf, "profile": prof,
     }
     log(f"[full] serve O6/kernel on {card}: {n_req} requests (prompts "
         f"{res['prompt_lens']}, 32 new each), {out['tokens']} tokens in "
         f"{out['ticks']} ticks / {out['wall_s']:.2f} s = "
         f"{out['tok_per_s']:.1f} tok/s ({res['ms_per_tick']:.2f} ms/tick), "
-        f"kernel launches {launches} = {cfg.n_layers} x {out['ticks']}, "
+        f"kernel launches {launches} = {cfg.n_layers} x {out['ticks']} "
+        f"(bodies {bodies['paged_attention']}), "
         f"peak {peak / 2**30:.2f} GiB, pool {out['pool']['pool_rows']} rows "
         f"x {T} tokens ({out['pool']['pool_mb']:.1f} MiB)")
     torch.cuda.empty_cache()
@@ -2160,6 +2279,7 @@ def run_chunked(model, params, cut_cfg, cut_params, reqs, *, prestaged_tokens,
     reset_launches()
     out = serve_counted(eng, reqs)
     b1, b2 = ops.paged_attention.launches, ops.paged_prefill_attention.launches
+    bodies = paged_bodies("(d)")
     no_training_kernels("(d)")
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     chunks = sum(-(-len(p) // C) for p, _ in reqs)
@@ -2173,6 +2293,7 @@ def run_chunked(model, params, cut_cfg, cut_params, reqs, *, prestaged_tokens,
         raise AssertionError("(d) not every request got its tokens")
     out.update(launches={"paged_attention": b1,
                          "paged_prefill_attention": b2},
+               body_launches=bodies,
                chunk=C, chunk_dispatches=chunks, teacher_forced=tf,
                equal_to_prestaged=_same_tokens(out["generated"],
                                                prestaged_tokens))
@@ -2237,6 +2358,7 @@ def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
     reset_launches()
     out = serve_counted(eng, reqs)
     b1, b2 = ops.paged_attention.launches, ops.paged_prefill_attention.launches
+    bodies = paged_bodies("(e)")
     no_training_kernels("(e)")
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     if b2 % L or b1 % L or b1 // L + b2 // L != out["dispatches"]:
@@ -2251,6 +2373,7 @@ def run_spec(model, params, reqs, *, chunked_tokens, B, max_seq, T,
     st = eng.spec_stats
     out.update(launches={"paged_attention": b1,
                          "paged_prefill_attention": b2},
+               body_launches=bodies,
                verify_dispatches=b2 // L, spec=st, draft_k=K,
                equal_to_chunked=[same, total], teacher_forced=tfv)
     log(f"[full] (e) O7 self-draft K={K}, O6/kernel: accept_rate "
@@ -2435,6 +2558,7 @@ def phase_narrow(model, params, cut_cfg, cut_params, reqs, *,
         out["launches"] = {"paged_attention": ops.paged_attention.launches,
                            "paged_prefill_attention":
                                ops.paged_prefill_attention.launches}
+        out["body_launches"] = paged_bodies(run)
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
         no_training_kernels(run)
         return out
@@ -2613,6 +2737,23 @@ def no_training_kernels(run: str) -> None:
         if fn.launches:
             raise AssertionError(f"{run}: {name} launched {fn.launches} "
                                  f"times in a serving run")
+
+
+def paged_bodies(run: str) -> dict:
+    """B1's and B2's launches by body since the last reset; a serving
+    run's bf16 q on a bf16, int8 or fp8 pool must have run the split
+    body every time (asserted)."""
+    from repro_torch.kernels.paged_attention import ops
+
+    got = {}
+    for fn in (ops.paged_attention, ops.paged_prefill_attention):
+        if fn.body_launches["split_mma"] != fn.launches or \
+                fn.body_launches["cuda_core"]:
+            raise AssertionError(f"{run}: {fn.__name__} launched "
+                                 f"{fn.launches} times, bodies "
+                                 f"{fn.body_launches}: want all split_mma")
+        got[fn.__name__] = dict(fn.body_launches)
+    return got
 
 
 def read_launches() -> dict:
@@ -3022,8 +3163,10 @@ def phase_paper_ladder() -> dict:
         if got != ((1, 0) if level == 0 else (0, 1)):
             raise AssertionError(f"O{level} {size}^3: launches (B7, B6) "
                                  f"{got}")
-        # O5's bf16 tiles run the tensor-core body, O1..O4 the CUDA cores.
-        which = "wgmma" if level == 5 else "cuda_core"
+        # O5's bf16 tiles run the wgmma body, O3 and O4 (a block per
+        # tile) the 3xTF32 body, O1 and O2 the CUDA cores.
+        which = ("wgmma" if level == 5 else "tf32x3" if level >= 3
+                 else "cuda_core")
         if level and ops.matmul_tiled.body_launches != {
                 **before[2], which: before[2][which] + 1}:
             raise AssertionError(f"O{level} {size}^3: B6 bodies "
@@ -3052,6 +3195,14 @@ def phase_paper_ladder() -> dict:
         ms[f"O{level} {size}^3"] = time_ms(
             lambda: ops.matmul(x, y, level), reps=2 if slow else 30,
             warmup=1 if slow else 3)
+    # O2 -> O3 is now two steps: PE duplication (a block per tile, on the
+    # CUDA cores) and the tensor cores (3xTF32).  The CUDA-core body at
+    # O3's blocks, grid and stage, launched straight through the binding
+    # (not counted), reads the first step apart.
+    for size, (x, y) in ((n, (a, b)), (nb, big)):
+        _, _, _, (xc, yc), blk = rung_call(3, x, y)
+        _, core = cuda_core_at(xc, yc, blk)
+        ms[f"O3 {size}^3 cuda_core"] = time_ms(core, reps=10)
     model = costmodel.refinement_curve(costmodel.MACHSUITE_PROFILES["gemm"])
     log(f"[paper] Fig. 4 analogue on the card, {n}^3 f32 (O5 bf16 "
         f"operands), device ms through ops.matmul; the analytic model's "
@@ -3068,6 +3219,21 @@ def phase_paper_ladder() -> dict:
             f"  (model {m0:.1f}x vs O0)")
     for level in (3, 4, 5):
         log(f"[paper]   O{level} at {nb}^3: {ms[f'O{level} {nb}^3']:.4f} ms")
+    split = {}
+    for size in (n, nb):
+        core = ms[f"O3 {size}^3 cuda_core"]
+        split[f"{size}^3"] = {
+            "O3_cuda_core_ms": core,
+            "pe_duplication_x": (ms[f"O2 {size}^3"] / core
+                                 if size == n else None),
+            "tensor_core_x": core / ms[f"O3 {size}^3"]}
+        pe = split[f"{size}^3"]["pe_duplication_x"]
+        log(f"[paper]   O2 -> O3 at {size}^3 in two steps: "
+            + (f"PE duplication (O2 -> O3 on the CUDA cores, {core:.4f} ms)"
+               f" {pe:.2f}x, " if pe else
+               f"O3 on the CUDA cores {core:.4f} ms, ")
+            + f"then the tensor cores (3xTF32) "
+            f"{split[f'{size}^3']['tensor_core_x']:.2f}x")
     del a, b, big
     torch.cuda.empty_cache()
 
@@ -3091,7 +3257,7 @@ def phase_paper_ladder() -> dict:
         f"the oracle (rtol 2e-4, atol 1e-5); wall s: "
         f"{ {k: round(v['wall_s'], 4) for k, v in machsuite.items()} }")
     return {"launches": launches, "body_launches": body_launches, "ms": ms,
-            "fig4": rows, "machsuite_gemm": machsuite}
+            "fig4": rows, "o2_to_o3": split, "machsuite_gemm": machsuite}
 
 
 def _leaves(tree):
@@ -3161,6 +3327,9 @@ def main() -> int:
         k["launches_by_run"] = {run: n[k["name"]] for run, n in runs.items()}
     b1["launches"] = runs["b"]["paged_attention"]
     b2["launches"] = runs["d"]["paged_prefill_attention"]
+    for k, run in ((b1, full), (b2, full["chunked"])):
+        for body, count in run["body_launches"][k["name"]].items():
+            k[f"launches_{body}"] = count
     # The quantized branch on its main path: phase 5f's narrow runs (not
     # its bf16 batch-16 run), B1q in the int8 run (b), B2q in the int8
     # run (d).
@@ -3171,6 +3340,8 @@ def main() -> int:
         k["launches_by_run"] = {run: n["launches"][wrapper]
                                 for run, n in narrow.items()}
         k["launches"] = k["launches_by_run"][main_run]
+        for body, count in narrow[main_run]["body_launches"][wrapper].items():
+            k[f"launches_{body}"] = count
     # B3 on its main path: phase 6's train() run, by body.
     b3["launches"] = trained["launches"]["flash_attention"]
     b3["launches_by_run"] = {"train": b3["launches"]}

@@ -1,7 +1,9 @@
 // Paged attention for Hopper (sm_90a): GQA attention read straight off a
 // paged KV block pool through per-slot block tables, for one query per
 // slot (decode) or Q consecutive queries per slot (chunked prefill and
-// the speculative verify window).
+// the speculative verify window).  This is the kernel's CUDA-core body:
+// ops.body routes bf16 queries on bf16, int8 or fp8 pools (the serving
+// path) to paged_attention_split.cu, and f32 queries or f32 pools here.
 //
 // Replaces the Pallas TPU kernels
 //   B1 src/repro/kernels/paged_attention/kernel.py:paged_attention_pallas
@@ -74,15 +76,14 @@
 // Bound: the HBM bytes of the K/V positions attended.  At qwen3-8b width
 // that is 36 layers x 2 (K, V) x 8 kv heads x 128 x 2 B = 147 KB per
 // cached token per decode tick (74 KB from a 1-byte pool, plus 64 B of
-// scales per 16-token block and layer), read against 3.35 TB/s.  Known gaps of
-// this design, for later work: K is read twice (once per pass), and each
-// row tile of a prefill chunk reads the slot's prefix again (32 tiles per
-// kv head for a 64-token chunk at qwen3-8b); there is no split of a long
-// sequence across blocks, so a decode step has only B * KV blocks in
-// flight (64 at batch 8, against 132 SMs) and the longest slot sets the
-// time; tiles are staged synchronously (no TMA, no cp.async pipeline
-// overlapping the next chunk's loads with this chunk's math) and the dot
-// products run on CUDA cores (no wgmma over the query rows).
+// scales per 16-token block and layer), read against 3.35 TB/s.  This
+// body keeps f32 arithmetic for its f32 callers and does not chase the
+// bound: K is read twice (once per pass), each row tile of a prefill
+// chunk reads the slot's prefix again, a decode step has only B * KV
+// blocks in flight, tiles are staged synchronously and the dot products
+// run on CUDA cores.  The split body (paged_attention_split.cu) removes
+// those gaps for bf16 queries: positions split across blocks, cp.async
+// double buffering, mma.sync, 64-row tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>

@@ -7,9 +7,22 @@ for CUDA tensors — no fallback — or run the plain version (``ref``) for
 CPU tensors.  Each kernel launch adds one to the wrapper's ``launches``.
 Both read wide pools (bf16, f32) and, with ``k_scale``/``v_scale``,
 narrow ones (int8, float8_e4m3fn): the quantized branch.
+
+The kernel has two bodies.  ``body`` picks one from the q and pool
+dtypes and the head width alone, before any launch: bf16 q on a bf16,
+int8 or fp8 pool with head_dim a multiple of 16 up to 256 runs
+``csrc/paged_attention_split.cu`` (``"split_mma"``: positions split into
+partitions of ``partition_positions(T, D)`` across blocks, mma.sync,
+two device kernels a call), everything else — f32 q, f32 pools —
+``csrc/paged_attention.cu`` (``"cuda_core"``).  This is routing, not a
+fallback: each body counts its launches in the wrapper's
+``body_launches``, and a body that fails to build or launch raises.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -24,6 +37,40 @@ _INTS = (torch.int32, torch.int64)
 # (query row, dim) accumulator slots: 128 threads x 8 registers.
 _SMEM_LIMIT = 232_448
 _MAX_RD = 1024
+BODIES = ("split_mma", "cuda_core")
+# The split body: positions a chunk, and the partition's positions at
+# T dividing 64 (scripts/paged_split_ab.py sweeps 64..512 at the decode,
+# chunk and verify shapes).
+_CHUNK = 64
+_PARTITION = 128
+
+
+@functools.cache
+def body(q_dtype, pool_dtype, head_dim: int) -> str:
+    """Which body runs: ``"split_mma"`` for bf16 q on a bf16, int8 or
+    fp8 e4m3 pool with head_dim a multiple of 16 up to 256 (the mma's k
+    step; wider would not keep a 64-row tile's accumulator in
+    registers), ``"cuda_core"`` otherwise."""
+    if (q_dtype == torch.bfloat16 and pool_dtype in (torch.bfloat16,)
+            + _NARROW and head_dim % 16 == 0 and 16 <= head_dim <= 256):
+        return "split_mma"
+    return "cuda_core"
+
+
+@functools.cache
+def partition_positions(T: int, D: int) -> int:
+    """Positions of one partition of the split body: whole 64-position
+    chunks and whole pool blocks, fixed by (T, D) alone — never by Q, the
+    row tile or a slot's length, so a row's partitions are a function of
+    its positions only."""
+    unit = math.lcm(_CHUNK, T)
+    return unit * max(1, _PARTITION // unit)
+
+
+def row_tile(rows: int) -> int:
+    """Rows of one tile of the split body for a kv head's G Q rows: 16,
+    32 or 64 (one to four m16 tiles)."""
+    return 16 if rows <= 16 else 32 if rows <= 32 else 64
 
 
 def _check_scales(k_pool, k_scale, v_scale):
@@ -89,6 +136,8 @@ def _check(q, k_pool, v_pool, tables, lengths, k_scale=None, v_scale=None):
             t.data_ptr() % 16 for t in (k_pool, v_pool)):
         raise ValueError(f"pool rows must be 16-byte multiples on 16-byte "
                          f"aligned pools (D={D}, {k_pool.dtype})")
+    if body(q.dtype, k_pool.dtype, D) == "split_mma":
+        return                   # the limits below are the CUDA cores'
     # A block holds R query rows, as many as its accumulator slots take.
     R = min(H // KV * Q, _MAX_RD // D)
     if R < 1:
@@ -127,14 +176,21 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *, k_scale=None,
         return paged_attention_ref(q, k_pool, v_pool, tables, lengths,
                                    k_scale, v_scale)
     tables, lengths = _on_card(q, tables, lengths)
-    out = torch.empty_like(q)
-    kernel.launch(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
-                  kernel_scale(q.shape[-1], q.dtype))
+    which = body(q.dtype, k_pool.dtype, q.shape[-1])
+    if which == "split_mma":
+        out = _split(q, 1, k_pool, v_pool, k_scale, v_scale, tables,
+                     lengths)
+    else:
+        out = torch.empty_like(q)
+        kernel.launch(q, k_pool, v_pool, k_scale, v_scale, tables, lengths,
+                      out, kernel_scale(q.shape[-1], q.dtype))
     paged_attention.launches += 1
+    paged_attention.body_launches[which] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.body_launches = dict.fromkeys(BODIES, 0)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, tables, lengths, *,
@@ -158,14 +214,37 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, lengths, *,
         return paged_prefill_attention_ref(q, k_pool, v_pool, tables,
                                            lengths, k_scale, v_scale)
     tables, lengths = _on_card(q, tables, lengths)
-    out = torch.empty_like(q)
-    kernel.launch_prefill(q, k_pool, v_pool, k_scale, v_scale, tables,
-                          lengths, out, kernel_scale(q.shape[-1], q.dtype))
+    which = body(q.dtype, k_pool.dtype, q.shape[-1])
+    if which == "split_mma":
+        out = _split(q, q.shape[1], k_pool, v_pool, k_scale, v_scale,
+                     tables, lengths)
+    else:
+        out = torch.empty_like(q)
+        kernel.launch_prefill(q, k_pool, v_pool, k_scale, v_scale, tables,
+                              lengths, out,
+                              kernel_scale(q.shape[-1], q.dtype))
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.body_launches[which] += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.body_launches = dict.fromkeys(BODIES, 0)
+
+
+def _split(q, Q, k_pool, v_pool, k_scale, v_scale, tables, lengths):
+    """The split body on q (B, Q, H, D) bf16, or B1's (B, H, D) as Q = 1:
+    one instruction sequence per row for B1 and B2."""
+    if q.data_ptr() % 16:
+        q = q.clone()            # 16-byte copies of the query rows
+    out = torch.empty_like(q)
+    H, D = q.shape[-2], q.shape[-1]
+    T, KV = k_pool.shape[1], k_pool.shape[2]
+    kernel.launch_split(q, k_pool, v_pool, k_scale, v_scale, tables, lengths,
+                        out, kernel_scale(D, q.dtype), Q=Q,
+                        rows=row_tile(H // KV * Q),
+                        P=partition_positions(T, D))
+    return out
 
 
 def _on_card(q, tables, lengths):

@@ -31,9 +31,12 @@
 //            tiled_matmul_wgmma.cu, the tensor-core body; this body runs
 //            the bf16 blocks that one does not take.
 //
-// Every rung here sums in f32 FMAs, never TF32: a bf16 x bf16 product is
-// exact in f32, so O5 differs from an f32 product of the rounded
-// operands only in summation order.
+// This is B6's CUDA-core body: every launch here sums in f32 FMAs, never
+// TF32 (a bf16 x bf16 product is exact in f32, so O5 differs from an f32
+// product of the rounded operands only in summation order).  ops.body
+// routes O3 and O4 at the blocks they pick to tiled_matmul_tf32x3.cu
+// (3xTF32 on the tensor cores) and O5's to tiled_matmul_wgmma.cu; this
+// body runs O1 and O2 and the blocks those two do not take.
 //
 // One body for B6.  256 threads as a 16 x 16 grid (ty, tx); a block tile
 // (bm, bn) is covered by sub-tiles of (16 RM, 16 RN) outputs, RM, RN in
@@ -71,9 +74,10 @@
 // the SMs (64 tiles of 128 x 128 at 1024^3 cover 64 of the 132 SMs, so
 // the rungs are also timed at 4096^3, where 1,024 tiles fill the card)
 // and reuse each staged element 16 RM (or 16 RN) times from registers;
-// they run on the CUDA cores, so the f32 rungs stay under the f32 peak
-// (3xTF32 tensor-core math is queued, ROADMAP queue B).  O0..O2 run on
-// one SM by design: the paper's starting point.
+// on the CUDA cores this body stays under the 67 TFLOP/s f32 peak, which
+// is why the f32 rungs with a block per tile run 3xTF32 on the tensor
+// cores instead.  O0..O2 run on one SM by design: the paper's starting
+// point.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -13,12 +13,17 @@ raise on anything else, then launch the CUDA kernel for CUDA tensors —
 no fallback — or run the plain version (``ref.py``) for CPU tensors.
 Each kernel launch adds one to its wrapper's ``launches``.
 
-B6 has two bodies.  ``body`` picks one from dtype, shape and blocks
-alone, before any launch: bf16 tiles the tensor cores take (the O5 rung
-at the picked blocks) run ``csrc/tiled_matmul_wgmma.cu``, everything
-else ``csrc/tiled_matmul.cu``.  This is routing, not a fallback: each
-body counts its launches in ``matmul_tiled.body_launches``, and a body
-that fails to build or launch raises.
+B6 has three bodies.  ``body`` picks one from dtype, shape, blocks and
+the launch's grid and stages alone, before any launch: bf16 tiles the
+tensor cores take (the O5 rung at the picked blocks) run
+``csrc/tiled_matmul_wgmma.cu``; f32 tiles with a block per tile that the
+3xTF32 body takes (O3 and O4 at the picked blocks) run
+``csrc/tiled_matmul_tf32x3.cu``; everything else — O1 and O2, one block
+walking every tile, the ladder's unrefined rungs — runs
+``csrc/tiled_matmul.cu`` on the CUDA cores.  This is routing, not a
+fallback: each body counts its launches in
+``matmul_tiled.body_launches``, and a body that fails to build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from repro_torch.kernels.tiled_matmul.ref import matmul_ref, matmul_tiled_ref
 SMEM_BUDGET = H100_SXM.smem_per_block
 
 _DTYPES = (torch.float32, torch.bfloat16)
-BODIES = ("cuda_core", "wgmma")
+BODIES = ("cuda_core", "wgmma", "tf32x3")
 
 
 def _fit(dim: int, want: int) -> int:
@@ -104,18 +109,41 @@ def wgmma_smem_bytes(bm: int, bn: int, bk: int) -> int:
     return 2 * (bm * bk + bk * b_cols) * 2 + 1024 + 2 * 16
 
 
-def body(dtype, M: int, N: int, K: int, bm: int, bn: int, bk: int) -> str:
-    """Which B6 body runs (M, K) @ (K, N) at blocks (bm, bn, bk):
-    ``"wgmma"`` (tensor cores, TMA) for bf16 with bm 64 or 128 (one or
-    two warpgroups of 64 rows), bn a multiple of 16 up to 256 (the MMA's
-    widths), bk a multiple of 64 (whole 128-byte swizzle boxes), N and
-    K multiples of 8 (TMA's 16-byte row strides) and a two-slot ring that
-    fits a block's shared memory; ``"cuda_core"`` otherwise."""
+def tf32x3_smem_bytes(bm: int, bn: int, bk: int, stages: int) -> int:
+    """Shared memory of the 3xTF32 body: per stage A's (bm x bk) tile
+    with rows padded by 4 floats and B's (bk x bn) tile with rows padded
+    by 8, f32."""
+    return 4 * stages * (bm * (bk + 4) + bk * (bn + 8))
+
+
+def body(dtype, M: int, N: int, K: int, bm: int, bn: int, bk: int, *,
+         parallel_mn: bool = False, double_buffer: bool = False) -> str:
+    """Which B6 body runs (M, K) @ (K, N) at blocks (bm, bn, bk) with
+    the launch's ``parallel_mn`` and ``double_buffer`` (default: one
+    block walking the tiles, one stage — the O2 launch):
+
+    - ``"wgmma"`` (tensor cores, TMA) for bf16 with bm 64 or 128 (one or
+      two warpgroups of 64 rows), bn a multiple of 16 up to 256 (the
+      MMA's widths), bk a multiple of 64 (whole 128-byte swizzle boxes),
+      N and K multiples of 8 (TMA's 16-byte row strides) and a two-slot
+      ring that fits a block's shared memory;
+    - ``"tf32x3"`` (tensor cores, 3xTF32 on mma.sync) for f32 with a
+      block per tile (``parallel_mn``: O3 and O4), bm and bn 32, 64 or
+      128 (8 warps of 16 x 8 tiles), bk a multiple of 8 (the MMA's
+      depth), N and K multiples of 4 (16-byte copies) and the stages
+      within a block's shared memory;
+    - ``"cuda_core"`` otherwise (O1 and O2 among them)."""
     if (dtype == torch.bfloat16 and bm in (64, 128) and bn % 16 == 0
             and 16 <= bn <= 256 and bk % 64 == 0 and N % 8 == 0
             and K % 8 == 0
             and wgmma_smem_bytes(bm, bn, bk) <= SMEM_BUDGET):
         return "wgmma"
+    if (dtype == torch.float32 and parallel_mn and bm in (32, 64, 128)
+            and bn in (32, 64, 128) and bk % 8 == 0 and N % 4 == 0
+            and K % 4 == 0
+            and tf32x3_smem_bytes(bm, bn, bk, 2 if double_buffer else 1)
+            <= SMEM_BUDGET):
+        return "tf32x3"
     return "cuda_core"
 
 
@@ -162,14 +190,16 @@ def matmul_tiled(a, b, *, bm: int, bn: int, bk: int, parallel_mn: bool,
         return matmul_tiled_ref(a, b, bk=bk)
     M, K = a.shape
     N = b.shape[1]
-    which = body(a.dtype, M, N, K, bm, bn, bk)
+    which = body(a.dtype, M, N, K, bm, bn, bk, parallel_mn=parallel_mn,
+                 double_buffer=double_buffer)
     a, b = a.contiguous(), b.contiguous()
-    if which == "wgmma":
-        # TMA reads from 16-byte aligned addresses; a view that starts
-        # elsewhere is copied (the body stays the same).
+    if which != "cuda_core":
+        # TMA and 16-byte cp.async read from 16-byte aligned addresses; a
+        # view that starts elsewhere is copied (the body stays the same).
         a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    launch = kernel.launch_wgmma if which == "wgmma" else kernel.launch_tiled
+    launch = {"wgmma": kernel.launch_wgmma, "tf32x3": kernel.launch_tf32x3,
+              "cuda_core": kernel.launch_tiled}[which]
     launch(a, b, out, bm=bm, bn=bn, bk=bk,
            grid=(M // bm) * (N // bn) if parallel_mn else 1,
            stages=2 if double_buffer else 1)

@@ -1,8 +1,10 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (B1 decode, B2
-multi-query, both on wide and narrow int8 / fp8 pools, B3 flash
+multi-query, both on wide and narrow int8 / fp8 pools and in both bodies
+— bf16 q on the split mma.sync body, f32 on the CUDA cores —, B3 flash
 attention in both bodies — bf16 on mma.sync, f32 on the CUDA cores —,
-B4 RWKV-6 WKV, B5 Mamba-2 SSD, B6/B7 tiled matmul, B6 in both bodies —
-bf16 tiles on wgmma fed by TMA, the rest on the CUDA cores) against
+B4 RWKV-6 WKV, B5 Mamba-2 SSD, B6/B7 tiled matmul, B6 in its three
+bodies — bf16 tiles on wgmma fed by TMA, the f32 rungs with a block per
+tile on 3xTF32 mma.sync, the rest on the CUDA cores) against
 their plain PyTorch versions on the card.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
@@ -19,12 +21,17 @@ import torch
 from repro_torch.kernels.paged_attention import ops, ref
 
 
-def _case(B, H, KV, D, T, nb, *, dtype, seed=5, device="cuda", Q=None):
-    """A shuffled pool with NaN in the NULL block and unreferenced rows;
-    ``Q`` gives q a query axis (B, Q, H, D), with lengths >= Q."""
+def _case(B, H, KV, D, T, nb, *, dtype, seed=5, device="cuda", Q=None,
+          lengths=None, stale_tails=False):
+    """A shuffled pool with NaN in the NULL block and unreferenced rows
+    (and, with ``stale_tails``, in every slot's block past its length);
+    ``Q`` gives q a query axis (B, Q, H, D); ``lengths`` (default random,
+    >= Q, the first nb * T) sets every slot's length."""
     r = np.random.default_rng(seed)
-    lengths = r.integers(Q or 1, nb * T + 1, B).astype(np.int32)
-    lengths[0] = nb * T
+    if lengths is None:
+        lengths = r.integers(Q or 1, nb * T + 1, B).astype(np.int32)
+        lengths[0] = nb * T
+    lengths = np.asarray(lengths, np.int32)
     R = 1 + B * nb + 3
     kp = r.normal(size=(R, T, KV, D)).astype(np.float32)
     vp = r.normal(size=(R, T, KV, D)).astype(np.float32)
@@ -39,6 +46,10 @@ def _case(B, H, KV, D, T, nb, *, dtype, seed=5, device="cuda", Q=None):
     for row in set(range(R)) - used:
         kp[row] = np.nan
         vp[row] = np.nan
+    for b, L in enumerate(lengths.tolist()):
+        if stale_tails and L % T:
+            kp[tables[b, L // T], L % T:] = np.nan
+            vp[tables[b, L // T], L % T:] = np.nan
     q = r.normal(size=(B, H, D) if Q is None else (B, Q, H, D)).astype(
         np.float32)
     to = lambda a, dt=dtype: torch.tensor(a).to(device=device, dtype=dt)
@@ -167,6 +178,160 @@ def test_quantized_kernel_matches_plain_and_dequantized_pool(kvd, dims, Q):
     wide = fn(q, kvquant.dequantize(kw, ks[:, None, :, None]),
               kvquant.dequantize(vw, vs[:, None, :, None]), tables, lengths)
     assert torch.equal(got, wide)
+
+
+def _case_at(lengths, *, H=32, KV=8, D=128, T=16, Q=None, nb=None,
+             dtype=torch.bfloat16, seed=7):
+    """``_case`` at the given lengths (B = len(lengths)), stale tails
+    NaN; ``nb`` widens the tables past the longest length."""
+    return _case(len(lengths), H, KV, D, T,
+                 nb or max(1, -(-max(lengths) // T)), dtype=dtype, seed=seed,
+                 Q=Q, lengths=lengths, stale_tails=True)
+
+
+def _held_split(case, *, narrow=None):
+    """B1 (3-D q) or B2 on the split body against the plain version
+    (two bf16 ulps plus 1e-3; of the row's largest output for B2), every
+    B2 row bitwise equal to B1 at its limit, a narrow pool's output
+    bitwise equal to the kernel on its dequantized pool; asserts each
+    call ran the split body once."""
+    from repro_torch.serving import kvquant
+
+    q = case[0]
+    prefill = q.dim() == 4
+    fn, plain = ((ops.paged_prefill_attention,
+                  ref.paged_prefill_attention_ref) if prefill else
+                 (ops.paged_attention, ref.paged_attention_ref))
+    kw = {} if narrow is None else dict(k_scale=narrow[0], v_scale=narrow[1])
+    before = dict(fn.body_launches)
+    got = fn(*case, **kw)
+    torch.cuda.synchronize()
+    assert fn.body_launches == {**before,
+                                "split_mma": before["split_mma"] + 1}
+    assert torch.isfinite(got).all()
+    want = plain(*case, *(narrow or ())).float()
+    err = (got.float() - want).abs()
+    scale = want.abs().amax(dim=-1, keepdim=True) if prefill else want.abs()
+    assert (err <= 1e-3 + 1.6e-2 * scale).all(), float(err.max())
+    if prefill:
+        q, kp, vp, tables, lengths = case
+        Q = q.shape[1]
+        for qi in range(Q):
+            one = ops.paged_attention(q[:, qi].contiguous(), kp, vp, tables,
+                                      lengths - (Q - 1 - qi), **kw)
+            assert torch.equal(one, got[:, qi]), qi
+    if narrow is not None:
+        ks, vs = narrow
+        wide = fn(case[0], kvquant.dequantize(case[1], ks[:, None, :, None]),
+                  kvquant.dequantize(case[2], vs[:, None, :, None]),
+                  *case[3:])
+        assert torch.equal(got, wide)
+    return got
+
+
+# The split body's partitions: P positions at fixed offsets (256 at
+# T = 16, D = 128; ops.partition_positions).
+def _P(T=16, D=128):
+    return ops.partition_positions(T, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [
+    [2048, 4096, 1, 300],                                  # many partitions
+    [_P() - 1, _P(), _P() + 1, 2 * _P(), 2 * _P() + 1],    # at the edges
+    [0, 40, 3],                                            # a zero length
+    [17] * 4,
+])
+@pytest.mark.parametrize("G", [4, 1])
+def test_split_body_decode_matches_plain(lengths, G):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    case = _case_at(lengths, H=8 * G, KV=8)
+    out = _held_split(case)
+    for b, L in enumerate(lengths):
+        if L == 0:
+            assert (out[b] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths,Q", [
+    ([960 + 64], 64),                       # the main path's chunk
+    ([_P() + 30], 64),                      # a chunk across a partition
+    ([2 * _P() + 2, _P() + 1, _P() + 4, 5, 3000], 5),  # verify across
+    ([4096], 64),                           # a long prefix
+    ([64], 64),                             # a first chunk
+])
+def test_split_body_prefill_matches_plain_and_b1_bitwise(lengths, Q):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _held_split(_case_at(lengths, Q=Q))
+
+
+@pytest.mark.cuda
+def test_split_body_at_smoke_width_and_a_padded_table():
+    """D = 16, T = 4 (the smoke configs), and a table wider than every
+    length (the NULL block past each slot)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _held_split(_case_at([1, 9, 300, 257], H=4, KV=2, D=16, T=4, nb=100))
+    _held_split(_case_at([3, 9, 300, 257], H=4, KV=2, D=16, T=4, Q=3,
+                         nb=100))
+    _held_split(_case_at([200, 7], H=32, KV=8, D=64, T=8, Q=5, nb=40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+@pytest.mark.parametrize("lengths,Q", [
+    ([2048, 4096, 0, _P() - 1, _P() + 1], None),
+    ([_P() + 30], 64),
+    ([2 * _P() + 2, _P() + 1, 5], 5),
+])
+def test_split_body_narrow_pools_equal_their_dequantized_pools(kvd,
+                                                              lengths, Q):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.serving import kvquant
+
+    q, kp, vp, tables, lens = _case_at(lengths, Q=Q, dtype=torch.float32)
+    out = [q.bfloat16()]
+    scales = []
+    for pool in (kp, vp):
+        # NaN bytes (0x7f: NaN in fp8, 127 in int8) wherever the pool
+        # held NaN, NaN scales on the rows that are NaN throughout.
+        bad = torch.isnan(pool)
+        x = torch.nan_to_num(pool)
+        sc = kvquant.block_scale(x, (1, 3), kvd)
+        w = kvquant.quantize(x, sc, kvd)
+        kvquant.as_bytes(w)[bad] = 0x7F
+        sc = sc[:, 0, :, 0].contiguous()
+        sc[bad.flatten(1).all(1)] = float("nan")
+        out.append(w)
+        scales.append(sc)
+    _held_split((out[0], out[1], out[2], tables, lens), narrow=scales)
+
+
+@pytest.mark.cuda
+def test_f32_operands_still_run_the_cuda_core_body():
+    """f32 q on f32 and bf16 pools, and bf16 q on an f32 pool, run the
+    CUDA-core body, held to the plain version in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    q, kp, vp, tables, lengths = _case_at([7, 300, 1024],
+                                          dtype=torch.float32)
+    bf, f32 = torch.bfloat16, torch.float32
+    for q_dt, pool_dt in ((f32, f32), (f32, bf), (bf, f32)):
+        args = (q.to(q_dt), kp.to(pool_dt), vp.to(pool_dt), tables, lengths)
+        before = dict(ops.paged_attention.body_launches)
+        got = ops.paged_attention(*args)
+        torch.cuda.synchronize()
+        assert ops.paged_attention.body_launches == {
+            **before, "cuda_core": before["cuda_core"] + 1}
+        want = ref.paged_attention_ref(*args)
+        if q_dt == f32:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=1.6e-2, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -683,15 +848,17 @@ def test_matmul_wgmma_body_matches_plain(shape, blocks, parallel_mn,
 
 @pytest.mark.cuda
 def test_matmul_routes_o5_to_wgmma_and_the_f32_rungs_to_cuda_cores():
-    """ops.matmul at O3..O5 on the card: one launch a call, O5 on the
-    tensor-core body, O3 and O4 on the CUDA-core body."""
+    """ops.matmul at O1..O5 on the card: one launch a call, O5 on the
+    wgmma body, O3 and O4 (a block per tile) on the 3xTF32 body, O1 and
+    O2 (one block walking every tile) on the CUDA-core body."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     from repro_torch.kernels.tiled_matmul import ops as mops
 
     a, b = (torch.tensor(x, device="cuda")
             for x in _matmul_case(512, 512, 512, seed=15))
-    for lvl, which in ((3, "cuda_core"), (4, "cuda_core"), (5, "wgmma")):
+    for lvl, which in ((1, "cuda_core"), (2, "cuda_core"), (3, "tf32x3"),
+                       (4, "tf32x3"), (5, "wgmma")):
         before = dict(mops.matmul_tiled.body_launches)
         mops.matmul(a, b, lvl)
         torch.cuda.synchronize()
@@ -721,3 +888,38 @@ def test_matmul_wgmma_body_takes_an_unaligned_view():
     assert mops.matmul_tiled.body_launches == {
         **before, "wgmma": before["wgmma"] + 1}
     _matmul_close(got, matmul_tiled_ref(a, b, bk=64))
+
+
+# B6's 3xTF32 body at O3 and O4: the reference's test shapes, odd
+# divisor blocks (which the CUDA cores take), and the main path's 1024^3
+# and 4096^3; each call's body is the one ops.body names.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,blocks", [
+    ((32, 32, 32), None), ((64, 96, 128), None), ((128, 64, 32), None),
+    ((48, 80, 112), None), ((105, 105, 105), (35, 21, 15)),
+    ((256, 256, 256), (32, 64, 8)), ((256, 384, 512), (64, 128, 24)),
+    ((1024, 1024, 1024), None), ((4096, 4096, 4096), None),
+])
+@pytest.mark.parametrize("lvl", [3, 4])
+def test_matmul_tf32x3_body_matches_plain(shape, blocks, lvl):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.core.optlevel import OptLevel
+    from repro_torch.kernels.tiled_matmul import ops as mops
+    from repro_torch.kernels.tiled_matmul.ref import matmul_tiled_ref
+
+    M, K, N = shape
+    args = mops.rung(OptLevel(lvl), M, N, K, blocks=blocks)
+    which = mops.body(torch.float32, M, N, K, args["bm"], args["bn"],
+                      args["bk"], parallel_mn=True,
+                      double_buffer=args["double_buffer"])
+    if blocks is None and shape != (48, 80, 112):
+        assert which == "tf32x3"
+    a, b = (torch.tensor(x, device="cuda")
+            for x in _matmul_case(M, K, N, seed=17))
+    before = dict(mops.matmul_tiled.body_launches)
+    got = mops.matmul(a, b, lvl, blocks=blocks)
+    torch.cuda.synchronize()
+    assert mops.matmul_tiled.body_launches == {
+        **before, which: before[which] + 1}
+    _matmul_close(got, matmul_tiled_ref(a, b, bk=args["bk"]))

@@ -215,3 +215,52 @@ def test_cpu_tensors_take_the_plain_version():
     before = ops.paged_attention.launches
     _port(case, torch.float32)
     assert ops.paged_attention.launches == before
+
+
+# The kernel's two bodies: ``ops.body`` routes by q and pool dtype and
+# head_dim alone.
+@pytest.mark.parametrize("pool", [torch.bfloat16, torch.int8,
+                                  torch.float8_e4m3fn])
+@pytest.mark.parametrize("D", [16, 128])
+def test_bf16_queries_on_bf16_and_narrow_pools_run_the_split_body(pool, D):
+    assert ops.body(torch.bfloat16, pool, D) == "split_mma"
+
+
+@pytest.mark.parametrize("q_dtype,pool,D", [
+    (torch.float32, torch.float32, 128),     # f32 q and pool
+    (torch.float32, torch.bfloat16, 128),    # f32 q
+    (torch.float32, torch.int8, 16),         # f32 q on a narrow pool
+    (torch.bfloat16, torch.float32, 128),    # f32 pool
+    (torch.bfloat16, torch.bfloat16, 20),    # head_dim not a multiple of 16
+    (torch.bfloat16, torch.bfloat16, 8),
+    (torch.bfloat16, torch.bfloat16, 272),   # over 256
+])
+def test_other_operands_run_the_cuda_core_body(q_dtype, pool, D):
+    assert ops.body(q_dtype, pool, D) == "cuda_core"
+
+
+@pytest.mark.parametrize("T", [1, 4, 8, 16, 20, 64, 128])
+@pytest.mark.parametrize("D", [16, 128])
+def test_split_partitions_are_fixed_by_block_and_head_width(T, D):
+    """A row's partitions are [0, P), [P, 2P), ... up to its limit, with P
+    a function of (T, D) alone — nothing of Q, the row tile or a slot's
+    length enters it — made of whole 64-position chunks and whole pool
+    blocks, at most 512 blocks a partition."""
+    import inspect
+
+    P = ops.partition_positions(T, D)
+    assert list(inspect.signature(ops.partition_positions).parameters) == [
+        "T", "D"]
+    assert P % 64 == 0 and P % T == 0 and P // T <= 512
+    if 64 % T == 0:
+        assert P == 128
+    assert [ops.row_tile(n) for n in (1, 4, 16, 17, 20, 32, 33, 256)] == [
+        16, 16, 16, 32, 32, 32, 64, 64]
+
+
+def test_cpu_call_counts_no_launch_of_either_body():
+    case = _case(2, 4, 2, 16, 4, 3)
+    before = dict(ops.paged_attention.body_launches)
+    _port(case, torch.bfloat16)
+    assert ops.paged_attention.body_launches == before
+    assert set(before) == {"split_mma", "cuda_core"}

@@ -215,3 +215,104 @@ def test_kernel_entry_points_resolve_once(monkeypatch):
         assert len(first.argtypes) == 18
     finally:
         kernel._entry.cache_clear()
+
+
+# The split body's arithmetic (``csrc/paged_attention_split.cu``) in
+# plain torch: positions in partitions of P at fixed offsets, each
+# partition's online (m, l) chunk by chunk, the row's statistics combined
+# over its partitions in partition order, p rounded with them, each
+# partition's p V in f32 and the partials summed in partition order.  It
+# bounds the algorithm's error on the CPU; the card holds the kernel to
+# the plain version and B2's rows to B1 bit for bit.
+def _split_emulation(q, kp, vp, tables, lengths, P):
+    B, Q, H, D = q.shape
+    _, T, KV, _ = kp.shape
+    G, S = H // KV, tables.shape[1] * T
+    rows = tables.reshape(-1).long()
+    k = kp.index_select(0, rows).reshape(B, S, KV, D).float()
+    v = vp.index_select(0, rows).reshape(B, S, KV, D).float()
+    pos = torch.arange(S)
+    lim = (lengths.long()[:, None] - (Q - 1 - torch.arange(Q))).clamp(max=S)
+    valid = (pos[None, None] < lim[:, :, None])[:, None, None]  # B,1,1,Q,S
+    v = torch.where((pos[None] < lim.amax(1, keepdim=True))[..., None, None],
+                    v, 0.0)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(B, Q, KV, G, D).float(),
+                     k)
+    s = s.to(q.dtype).float() * port_ref.kernel_scale(D, q.dtype)
+    n_part = -(-S // P)
+    nq = (lim.clamp(min=0) + P - 1) // P                        # (B, Q)
+    ms, ls = [], []
+    for part in range(n_part):
+        m = torch.full(s.shape[:-1], -1e30)
+        l = torch.zeros(s.shape[:-1])
+        for c0 in range(part * P, min((part + 1) * P, S), 64):
+            sc, cm = s[..., c0:c0 + 64], valid[..., c0:c0 + 64]
+            has = cm.any(-1)
+            m_new = torch.where(has, torch.maximum(
+                m, torch.where(cm, sc, -1e30).amax(-1)), m)
+            e = torch.where(cm, torch.exp(sc - m_new[..., None]), 0.0)
+            l = torch.where(has, l * torch.exp(m - m_new) + e.sum(-1), l)
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+    used = [(part < nq)[:, None, None] for part in range(n_part)]
+    m = torch.full(s.shape[:-1], -1e30)
+    for part in range(n_part):
+        m = torch.where(used[part], torch.maximum(m, ms[part]), m)
+    l = torch.zeros(s.shape[:-1])
+    for part in range(n_part):
+        l = torch.where(used[part],
+                        l + ls[part] * torch.exp(ms[part] - m), l)
+    p = torch.exp(s - m[..., None]) / l.clamp_min(1e-30)[..., None]
+    p = torch.where(valid, p.to(q.dtype).float(), 0.0)
+    out = torch.zeros(B, KV, G, Q, D)
+    for part in range(n_part):
+        sl = slice(part * P, (part + 1) * P)
+        partial = torch.einsum("bkgqs,bskd->bkgqd", p[..., sl], v[:, sl])
+        out = torch.where(used[part][..., None], out + partial, out)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Q, H, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("dims", [
+    (3, 4, 2, 16, 4, 40, 5),    # smoke width, 160 positions
+    (2, 8, 2, 128, 16, 24, 7),  # qwen3-8b head_dim, 384 positions
+    (2, 8, 2, 128, 16, 24, 1),  # decode (B1 is Q = 1)
+])
+@pytest.mark.parametrize("P", [64, 128, None])
+def test_split_arithmetic_matches_jax_kernel_bf16(dims, P):
+    """The split arithmetic in bf16 against the JAX kernel, at P = 64
+    and 128 (several partitions) and the routed P: within two bf16 ulps
+    of the row's largest output plus 1e-3, the card's tolerance."""
+    case = _case(*dims, seed=8)
+    t = _torch(case, torch.bfloat16)
+    P = P or ops.partition_positions(t[1].shape[1], t[0].shape[-1])
+    got = _split_emulation(*t, P).float().numpy()
+    want = _jax(case, jnp.bfloat16)
+    row = np.abs(want).max(axis=-1, keepdims=True)
+    assert np.all(np.abs(got - want) <= 1e-3 + 1.6e-2 * row), \
+        np.abs(got - want).max()
+
+
+def test_split_arithmetic_skips_empty_partitions_and_garbage():
+    """A zero-length slot gets zeros; a row's empty partitions are
+    skipped, never combined as (-inf, 0); NaN past every length (the
+    NULL block, unused rows, stale tails) changes no bit."""
+    q, kp, vp, tables, lengths = _torch(_case(3, 4, 2, 16, 4, 40, 1,
+                                              seed=9), torch.bfloat16)
+    lengths = torch.tensor([0, 70, 160], dtype=torch.int32)
+    clean = _split_emulation(q, kp, vp, tables, lengths, 64)
+    assert (clean[0] == 0).all() and torch.isfinite(clean).all()
+    kp2, vp2 = kp.clone(), vp.clone()
+    used = {int(tables[b, j]) for b in range(3)
+            for j in range(-(-int(lengths[b]) // 4))}
+    for row in set(range(kp.shape[0])) - used:
+        kp2[row] = float("nan")
+        vp2[row] = float("nan")
+    kp2[int(tables[1, 70 // 4]), 70 % 4:] = float("nan")
+    vp2[int(tables[1, 70 // 4]), 70 % 4:] = float("nan")
+    assert torch.equal(_split_emulation(q, kp2, vp2, tables, lengths, 64),
+                       clean)
+    want = port_ref.paged_prefill_attention_ref(q, kp, vp, tables, lengths)
+    err = (clean.float() - want.float()).abs()
+    assert (err <= 1e-3 + 1.6e-2 * want.float().abs().amax(-1,
+                                                            keepdim=True)).all()

@@ -189,10 +189,15 @@ def test_o5_at_the_picked_blocks_runs_the_tensor_core_body(n):
 @pytest.mark.parametrize("n", [1024, 4096])
 @pytest.mark.parametrize("lvl", [1, 2, 3, 4])
 def test_f32_rungs_run_the_cuda_core_body(n, lvl):
+    """The f32 rungs' routing: O1 and O2 (one block walking every tile)
+    stay on the CUDA-core body; O3 and O4 (a block per tile) at their
+    picked blocks run the 3xTF32 tensor-core body."""
     args = ops.rung(OptLevel(lvl), n, n, n)
     assert args["dtype"] == torch.float32
+    want = "tf32x3" if lvl >= 3 else "cuda_core"
     assert ops.body(args["dtype"], n, n, n, args["bm"], args["bn"],
-                    args["bk"]) == "cuda_core"
+                    args["bk"], parallel_mn=args["parallel_mn"],
+                    double_buffer=args["double_buffer"]) == want
 
 
 @pytest.mark.parametrize("shape,blocks", [
@@ -231,4 +236,93 @@ def test_cpu_call_counts_no_launch_of_either_body(lvl):
     ops.matmul(a, b, OptLevel(lvl))
     assert (ops.matmul_tiled.launches,
             ops.matmul_tiled.body_launches) == before
-    assert set(before[1]) == {"cuda_core", "wgmma"}
+    assert set(before[1]) == {"cuda_core", "wgmma", "tf32x3"}
+
+
+# B6's 3xTF32 body (``csrc/tiled_matmul_tf32x3.cu``) at O3 and O4.
+@pytest.mark.parametrize("shape", SHAPES + [(512, 512, 512)])
+@pytest.mark.parametrize("lvl", [3, 4])
+def test_f32_rungs_with_a_block_per_tile_route_by_blocks(shape, lvl):
+    """O3/O4 at the picked blocks: the 3xTF32 body takes bm and bn of
+    32, 64 or 128 and bk a multiple of 8 (48 x 80 x 112 picks bm 48, so
+    the CUDA cores run it); the same blocks with one block walking every
+    tile stay on the CUDA cores."""
+    M, K, N = shape
+    args = ops.rung(OptLevel(lvl), M, N, K)
+    bm, bn, bk = args["bm"], args["bn"], args["bk"]
+    eligible = bm in (32, 64, 128) and bn in (32, 64, 128) and bk % 8 == 0
+    assert ops.body(torch.float32, M, N, K, bm, bn, bk, parallel_mn=True,
+                    double_buffer=args["double_buffer"]) == (
+        "tf32x3" if eligible else "cuda_core")
+    assert eligible == (shape != (48, 80, 112))
+    assert ops.body(torch.float32, M, N, K, bm, bn, bk, parallel_mn=False,
+                    double_buffer=args["double_buffer"]) == "cuda_core"
+
+
+@pytest.mark.parametrize("shape,blocks,double_buffer", [
+    ((256, 256, 256), (96, 64, 64), False),    # bm not 32, 64 or 128
+    ((256, 256, 256), (64, 256, 64), False),   # bn over 128
+    ((256, 256, 260), (64, 64, 20), False),    # bk not a multiple of 8
+    ((256, 258, 256), (64, 64, 64), False),    # K not a multiple of 4
+    ((1024, 1024, 1024), (128, 128, 128), True),   # two stages overflow
+])
+def test_ineligible_f32_blocks_run_the_cuda_core_body(shape, blocks,
+                                                      double_buffer):
+    M, K, N = shape
+    assert ops.body(torch.float32, M, N, K, *blocks, parallel_mn=True,
+                    double_buffer=double_buffer) == "cuda_core"
+    assert ops.tf32x3_smem_bytes(128, 128, 128, 1) <= ops.SMEM_BUDGET
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the low 13 bits of the f32 pattern)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _truncated(x):
+    """The TF32 value an MMA reads from an f32 register: the 13 low bits
+    ignored (truncation toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32x3(a, b):
+    """The 3xTF32 body's arithmetic in plain torch: big = tf32(x) (to
+    nearest, ties away), small = x - big as the MMA reads it (truncated
+    to TF32), and a_s b_b + a_b b_s + a_b b_b in f32."""
+    a_b, b_b = _tf32(a), _tf32(b)
+    a_s, b_s = _truncated(a - a_b), _truncated(b - b_b)
+    return (a_s @ b_b + a_b @ b_s) + a_b @ b_b
+
+
+def test_tf32_split_is_exact_where_it_must_be():
+    x = torch.tensor(np.random.default_rng(0).standard_normal(4096)
+                     .astype(np.float32))
+    big = _tf32(x)
+    assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((x - big).abs() <= x.abs() * 2.0 ** -11).all()
+    # big + small, as the MMA reads small, carries all but 2^-21 of x
+    small = _truncated(x - big)
+    assert ((x - big - small).abs() <= x.abs() * 2.0 ** -21).all()
+    assert (small.abs() <= x.abs() * 2.0 ** -11).all()
+    # ties round away from zero: 1 + 2^-11 is halfway between tf32 values
+    half = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)])
+    assert _tf32(half).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(512, 512, 512)])
+def test_tf32x3_emulation_within_matmul_tol_of_the_oracle(shape):
+    """The split's error bound before the card runs it: 3xTF32 in plain
+    torch stays within MATMUL_TOL = 1e-5 of max |oracle|."""
+    a, b = (torch.tensor(x) for x in _inputs(*shape, seed=21))
+    want = ref.matmul_ref(a, b).numpy()
+    assert _rel(_tf32x3(a, b).numpy(), want) < TOL
+
+
+def test_tf32_alone_breaks_matmul_tol():
+    """One TF32 product keeps ~3 decimal digits: at 512^3 it misses
+    1e-5 of max |oracle| by more than 10x, so the body needs all three."""
+    a, b = (torch.tensor(x) for x in _inputs(512, 512, 512, seed=21))
+    want = ref.matmul_ref(a, b).numpy()
+    assert _rel((_tf32(a) @ _tf32(b)).numpy(), want) > 10 * TOL
