@@ -61,23 +61,31 @@ Phases (any failure raises, and the script exits non-zero):
      3d.    — B4, the RWKV-6 WKV kernel, against its plain version
               (``wkv_chunked_ref``) at rwkv6-3b's training shape (B=4,
               S=4096, H=40, N=64, chunk 128) and at edges (the smoke
-              width N=16 with chunk 64, chunk 48, N=8), each in bf16 and
-              f32, with and without an initial state; its autograd
+              width N=16 with chunk 64, chunk 48, N=8, lw at the clamp's
+              edge), each in bf16 and f32, with and without an initial
+              state, each case's body asserted and logged (the
+              chunk-parallel 3xTF32 body where ``ops.body`` sends it; the
+              CUDA-core body at chunk 48 and N=8); its autograd
               Function's gradients against autograd through the plain
-              version; device times of the kernel and the plain version
-              (no PyTorch call computes the recurrence, so no library
-              time), the wrapper's host time, and the bound;
+              version; device times of the kernel, the CUDA-core body at
+              the same shape and the plain version (no PyTorch call
+              computes the recurrence, so no library time), the wrapper's
+              host time, and the bound (3xTF32's products, and the bf16
+              bound of earlier PRs beside it);
      3e.    — B5, the Mamba-2 SSD kernel, against its plain version
               (``ssd_chunked_ref``) at mamba2-2.7b's training shape (B=4,
               S=4096, H=80, P=64, N=128, chunk 256) and at edges (the
               smoke width P=32, N=16 with chunk 128; P=8, N=8 with chunk 8
               and S=40; a strong decay whose cumsum passes -100 inside a
               chunk), each in bf16 and f32, with and without an initial
-              state; its autograd Function's gradients against autograd
+              state, each case's body asserted and logged (the
+              chunk-parallel 3xTF32 body; the CUDA-core body at P=8,
+              N=8); its autograd Function's gradients against autograd
               through the plain version; device times of the kernel, the
-              plain version and the Function's forward and backward (no
-              PyTorch call computes the scan, so no library time), the
-              wrapper's host time, and the bound;
+              CUDA-core body at the same shape, the plain version and the
+              Function's forward and backward (no PyTorch call computes
+              the scan, so no library time), the wrapper's host time, and
+              the bound (as for B4);
      3f.    — B7 (the O0 rung) and B6 (O1..O5), the blocked matmul of
               the paper's Fig. 4 ladder, against their plain versions
               at every rung at MachSuite's 1024^3, at O3..O5 at 4096^3,
@@ -155,7 +163,8 @@ Phases (any failure raises, and the script exits non-zero):
               the synthetic stream from seed 0 at seq 4096, global batch
               4 (train_4k's 256 cut to 4): per-step loss, grad_norm, wall
               time, tokens/s, peak memory and B4's launches (32 forward +
-              32 remat recompute a step, asserted); step 0 with B4 and
+              32 remat recompute a step, all on the chunk body,
+              asserted); step 0 with B4 and
               with its plain version in its place at 32 and 2 layers; a
               ``torch.profiler`` reading of one step;
   8. mamba  — mamba2-2.7b at its published widths (64 layers, d_model
@@ -165,7 +174,8 @@ Phases (any failure raises, and the script exits non-zero):
               0 at seq 4096, global batch 4 (train_4k's 256 cut to 4):
               per-step loss, grad_norm, wall time, tokens/s, peak memory
               and B5's launches (64 forward + 64 remat recompute a step,
-              asserted); step 0 with B5 and with its plain version in its
+              all on the chunk body, asserted); step 0 with B5 and with
+              its plain version in its
               place at 64 and 2 layers; a ``torch.profiler`` reading of
               one step;
   9. paper  — the paper's ladder on the card: ``ops.matmul(a, b, level)``
@@ -248,7 +258,10 @@ B3_TOL = {"bf16": 1.6e-2, "f32": 1e-5}
 # grad_norm is held only to be finite and within a factor of 10.
 TRAIN_TOL = {32: {"loss": 1e-3, "grad_norm_factor": 10.0},
              2: {"loss": 1e-3, "grad_norm": 1e-2}}
-B4_SOURCE = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
+# B4's chunk-parallel tensor-core body (the main path's) and its CUDA-core
+# body (other widths and chunks).
+B4_SOURCE = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv_chunk.cu"
+B4_CORE_SOURCE = "src/repro_torch/kernels/rwkv6_wkv/csrc/rwkv6_wkv.cu"
 B4_REPLACES = "src/repro/kernels/rwkv6_wkv/kernel.py:73"
 # |kernel - plain| <= WKV_TOL * (the largest |plain|) for y and for the
 # f32 state, for B4 and for B5: both sides compute in f32 and differ only
@@ -258,7 +271,8 @@ B4_REPLACES = "src/repro/kernels/rwkv6_wkv/kernel.py:73"
 WKV_TOL = 2e-5
 # Phase 7's global batch (train_4k's 256 cut to one card; PERF.md §4).
 RWKV_BATCH = 4
-B5_SOURCE = "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu"
+B5_SOURCE = "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd_chunk.cu"
+B5_CORE_SOURCE = "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu"
 B5_REPLACES = "src/repro/kernels/mamba2_ssd/kernel.py:66"
 # Phase 8's global batch (train_4k's 256 cut to one card; PERF.md §4).
 MAMBA_BATCH = 4
@@ -445,11 +459,17 @@ def check_case(name, case, kind, *, prefill=False):
     return float(err.max()), out
 
 
-def bound(nbytes: int, flops: int, peak: float = BF16_FLOPS) -> tuple:
-    """(least time in ms, what bounds it) on an H100 SXM, the operations
-    at ``peak`` FLOP/s (bf16 unless given)."""
+def bound(nbytes: int, flops: int, peak: float = BF16_FLOPS,
+          tf32_flops: int = 0) -> tuple:
+    """(least time in ms, what bounds it) on an H100 SXM: the bytes at
+    the memory rate against the operations, ``flops`` at ``peak`` FLOP/s
+    (bf16 unless given) plus ``tf32_flops`` at the TF32 peak.  A caller
+    counts a 3xTF32 product in ``tf32_flops`` once for each tensor-core
+    pass it needs at f32's accuracy: three where both operands are f32,
+    two where one is exact in TF32 (a widened bf16 value has no small
+    part)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = (flops / peak + tf32_flops / TF32_FLOPS) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1144,16 +1164,18 @@ def phase_flash_widths() -> dict:
 # Phase 3d: B4 against its plain version
 # ---------------------------------------------------------------------------
 
-def wkv_case(B, S, H, N, *, dtype, state: bool, seed: int):
+def wkv_case(B, S, H, N, *, dtype, state: bool, seed: int,
+             strong: bool = False):
     """r, k, v (B, S, H, N), the log-decay lw in [-0.35, 0] (the model's
-    clamp), u (H, N) and an f32 state or None."""
+    clamp; in [-0.35, -0.3], its edge, under ``strong``), u (H, N) and an
+    f32 state or None."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     mk = lambda *s, sc=0.5: (torch.randn(s, generator=g, device="cuda")
                              * sc).to(dtype)
     lw = -(torch.rand((B, S, H, N), generator=g, device="cuda")
-           * 0.35).to(dtype)
+           * (0.05 if strong else 0.35) + (0.3 if strong else 0.0)).to(dtype)
     s0 = (torch.randn((B, H, N, N), generator=g, device="cuda") * 0.2
           if state else None)
     return (mk(B, S, H, N), mk(B, S, H, N), mk(B, S, H, N), lw,
@@ -1187,16 +1209,28 @@ def scan_held_to_plain(label: str, got, want, kind: str) -> float:
     return float(ey.max())
 
 
+def body_ran(label: str, fn, which: str, before: dict) -> None:
+    """The call since ``before`` ran one launch of ``which`` (the body
+    its router picked) and none of another."""
+    if fn.body_launches != {**before, which: before[which] + 1}:
+        raise AssertionError(f"{label}: bodies {fn.body_launches}, before "
+                             f"{before}, want one {which}")
+
+
 def check_wkv(name, case, Q, kind) -> float:
-    """B4 vs ``wkv_chunked_ref`` on one case; max |y difference|."""
+    """B4 vs ``wkv_chunked_ref`` on one case, through the body its router
+    picks (asserted and logged); max |y difference|."""
     import torch
     from repro_torch.kernels.rwkv6_wkv import ops, ref
 
     r, k, v, lw, u, s0 = case
+    which = ops.body(r.shape[-1], Q)
+    before = dict(ops.wkv.body_launches)
     got = ops.wkv(r, k, v, lw, u, init_state=s0, chunk=Q)
     torch.cuda.synchronize()
+    body_ran(f"B4 {name}", ops.wkv, which, before)
     return scan_held_to_plain(
-        f"B4 {name}", got,
+        f"B4 {name}, {which} body", got,
         ref.wkv_chunked_ref(r, k, v, lw, u, init_state=s0, chunk=Q), kind)
 
 
@@ -1204,24 +1238,31 @@ def phase_wkv_kernel() -> dict:
     """Phase 3d: B4 against its plain version at rwkv6-3b's training
     shape (B = phase 7's batch, S=4096, H=40, N=64, chunk 128) in bf16
     and f32, with and without a state, and at edges (the smoke width
-    N=16 with Q=64, Q=48, N=8); the Function's gradients against
-    autograd through the plain version; times at the training shape."""
+    N=16 with Q=64, Q=48, N=8, the clamp's edge), each through the body
+    its router picks (the chunk body, or the CUDA-core body at Q=48 and
+    N=8); the Function's gradients against autograd through the plain
+    version; times at the training shape, the CUDA-core body's beside
+    the chunk body's."""
     import torch
-    from repro_torch.kernels.rwkv6_wkv import ops, ref
+    from repro_torch.kernels.rwkv6_wkv import kernel, ops, ref
 
     B = RWKV_BATCH
     main = (B, 4096, 40, 64)
     cases = [
-        (f"rwkv6-3b training shape B={B} S=4096 H=40 N=64 Q=128", main, 128),
-        ("smoke width B=4 S=64 H=4 N=16 Q=64", (4, 64, 4, 16), 64),
-        ("Q=48 B=2 S=96 H=6 N=64", (2, 96, 6, 64), 48),
-        ("N=8 B=2 S=256 H=8 N=8 Q=128", (2, 256, 8, 8), 128),
+        (f"rwkv6-3b training shape B={B} S=4096 H=40 N=64 Q=128", main, 128,
+         False),
+        ("smoke width B=4 S=64 H=4 N=16 Q=64", (4, 64, 4, 16), 64, False),
+        ("Q=48 B=2 S=96 H=6 N=64", (2, 96, 6, 64), 48, False),
+        ("N=8 B=2 S=256 H=8 N=8 Q=128", (2, 256, 8, 8), 128, False),
+        ("lw at the clamp's edge [-0.35, -0.3] B=2 S=1024 H=8 N=64 Q=128",
+         (2, 1024, 8, 64), 128, True),
     ]
     errs = {}
-    for i, (name, dims, Q) in enumerate(cases):
+    for i, (name, dims, Q, strong) in enumerate(cases):
         for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             for state in (False, True):
-                case = wkv_case(*dims, dtype=dt, state=state, seed=60 + i)
+                case = wkv_case(*dims, dtype=dt, state=state, seed=60 + i,
+                                strong=strong)
                 label = f"{name}{' s0' if state else ''}"
                 errs[f"{label} {kind}"] = check_wkv(label, case, Q, kind)
                 del case
@@ -1244,8 +1285,11 @@ def phase_wkv_kernel() -> dict:
     Bm, S, H, N = main
     r, k, v, lw, u, _ = wkv_case(*main, dtype=torch.bfloat16, state=False,
                                  seed=60)
+    y_, sf_ = torch.empty_like(r), torch.empty((Bm, H, N, N), device="cuda")
     res = {
         "ms": time_ms(lambda: ops.wkv(r, k, v, lw, u, chunk=128)),
+        "cuda_core_ms": time_ms(lambda: kernel.launch(
+            r, k, v, lw, u, None, y_, sf_, chunk=128, body="cuda_core")),
         "wrapper_host_ms": host_ms(lambda: ops.wkv(r, k, v, lw, u,
                                                    chunk=128), reps=20),
         "plain_ms": time_ms(lambda: ref.wkv_chunked_ref(r, k, v, lw, u,
@@ -1261,35 +1305,54 @@ def phase_wkv_kernel() -> dict:
         lambda: torch.autograd.grad(ops.wkv(*ins, chunk=128)[0], ins, gy),
         reps=5, warmup=1)
     del ins, gy
+    del y_, sf_
     # Bytes: r, k, v, lw read once and y written once (u and the state
-    # are 1e-4 of that).  Operations of the chunked form: per (b, h,
-    # chunk) the (Q, Q) scores and their product with v (2 Q^2 N FMA),
-    # the state read and update (2 Q N^2 FMA).
+    # are 1e-4 of that).  Operations of the chunked form, per (b, h,
+    # chunk): the chunk's state kj^T v and the entering state's read ri S
+    # (Q N^2 FMA each), A = ri kj^T below the diagonal (Q (Q - 1) / 2
+    # entries of N FMA; the diagonal is the bonus term) and A v over the
+    # causal triangle (Q (Q + 1) / 2 N FMA).  At f32's accuracy a product
+    # of two f32 operands (ri, kj, the state) takes 3xTF32's three
+    # tensor-core passes, one with v (bf16 here, exact in TF32) two.
+    # bound_bf16_ms is the bound of earlier PRs, the same operations at
+    # the bf16 peak.
     nbytes = sum(t.numel() * t.element_size() for t in (r, k, v, lw, r))
     Q = 128
-    flops = 2 * Bm * H * (S // Q) * (2 * Q * Q * N + 2 * Q * N * N)
-    bound_ms, bound_by = bound(nbytes, flops)
+    per = Bm * H * (S // Q)
+    fma_qnn = Q * N * N               # kj^T v, and ri S
+    fma_a = Q * (Q - 1) // 2 * N      # A below the diagonal
+    fma_av = Q * (Q + 1) // 2 * N     # A v
+    flops = 2 * per * (2 * fma_qnn + fma_a + fma_av)
+    tf32_flops = 2 * per * (2 * fma_qnn + 3 * fma_qnn + 3 * fma_a
+                            + 2 * fma_av)
+    bound_ms, bound_by = bound(nbytes, 0, tf32_flops=tf32_flops)
+    bound_bf16_ms = bound(nbytes, flops)[0]
     main_key = f"{cases[0][0]} bf16"
     out = {
         "name": "rwkv6_wkv",
         "route": "cuda",
         "source": B4_SOURCE,
+        "cuda_core_source": B4_CORE_SOURCE,
         "replaces": B4_REPLACES,
         "launches": None,
         "max_abs_err": errs[main_key],
         **res,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_bf16_ms": bound_bf16_ms,
         "shape": main_key,
         "bytes": nbytes,
         "flops": flops,
         "errors": errs,
         "grad_rel_err": grad_err,
     }
-    log(f"[kernel] B4 ({out['shape']}): kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, library: none (no PyTorch call "
+    log(f"[kernel] B4 ({out['shape']}): kernel (chunk_tf32x3 body) "
+        f"{res['ms']:.4f} ms, CUDA-core body {res['cuda_core_ms']:.4f} ms, "
+        f"plain {res['plain_ms']:.4f} ms, library: none (no PyTorch call "
         f"computes the WKV recurrence), bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nbytes} B, {flops} FLOP); the wrapper's host time "
+        f"({bound_by}: {nbytes} B, {flops} FLOP as {tf32_flops} of "
+        f"TF32 passes; "
+        f"{bound_bf16_ms:.4f} ms at the bf16 peak); the wrapper's host time "
         f"per call {res['wrapper_host_ms']:.4f} ms; the Function's forward "
         f"and backward (recomputed through the plain version) "
         f"{res['function_fwd_bwd_ms']:.4f} ms")
@@ -1324,15 +1387,19 @@ def ssd_case(B, S, H, P, N, *, dtype, state: bool, seed: int,
 
 
 def check_ssd(name, case, Q, kind) -> float:
-    """B5 vs ``ssd_chunked_ref`` on one case; max |y difference|."""
+    """B5 vs ``ssd_chunked_ref`` on one case, through the body its router
+    picks (asserted and logged); max |y difference|."""
     import torch
     from repro_torch.kernels.mamba2_ssd import ops, ref
 
     *ins, s0 = case
+    which = ops.body(ins[0].shape[-1], ins[3].shape[-1], Q)
+    before = dict(ops.ssd.body_launches)
     got = ops.ssd(*ins, init_state=s0, chunk=Q)
     torch.cuda.synchronize()
+    body_ran(f"B5 {name}", ops.ssd, which, before)
     return scan_held_to_plain(
-        f"B5 {name}", got,
+        f"B5 {name}, {which} body", got,
         ref.ssd_chunked_ref(*ins, init_state=s0, chunk=Q), kind)
 
 
@@ -1341,10 +1408,12 @@ def phase_ssd_kernel() -> dict:
     shape (B = phase 8's batch, S=4096, H=80, P=64, N=128, chunk 256) in
     bf16 and f32, with and without a state, and at edges (the smoke
     width with chunk 128, P=8 N=8 with chunk 8 and S=40, a strong
-    decay); the Function's gradients against autograd through the plain
-    version; times at the training shape."""
+    decay), each through the body its router picks (the chunk body, or
+    the CUDA-core body at P=8 N=8); the Function's gradients against
+    autograd through the plain version; times at the training shape, the
+    CUDA-core body's beside the chunk body's."""
     import torch
-    from repro_torch.kernels.mamba2_ssd import ops, ref
+    from repro_torch.kernels.mamba2_ssd import kernel, ops, ref
 
     B = MAMBA_BATCH
     main = (B, 4096, 80, 64, 128)
@@ -1393,8 +1462,11 @@ def phase_ssd_kernel() -> dict:
     Q = 256
     x, dt, A, Bs, Cs, _ = ssd_case(*main, dtype=torch.bfloat16, state=False,
                                    seed=80)
+    y_, sf_ = torch.empty_like(x), torch.empty((Bm, H, P, N), device="cuda")
     res = {
         "ms": time_ms(lambda: ops.ssd(x, dt, A, Bs, Cs, chunk=Q)),
+        "cuda_core_ms": time_ms(lambda: kernel.launch(
+            x, dt, A, Bs, Cs, None, y_, sf_, chunk=Q, body="cuda_core")),
         "wrapper_host_ms": host_ms(lambda: ops.ssd(x, dt, A, Bs, Cs,
                                                    chunk=Q), reps=20),
         "plain_ms": time_ms(lambda: ref.ssd_chunked_ref(x, dt, A, Bs, Cs,
@@ -1410,37 +1482,52 @@ def phase_ssd_kernel() -> dict:
         lambda: torch.autograd.grad(ops.ssd(*ins, chunk=Q)[0], ins, gy),
         reps=5, warmup=1)
     del ins, gy
+    del y_, sf_
     # Bytes: x, dt, Bs, Cs read once, y and the f32 final state written
     # once (A is 160 B).  Operations of the chunked form at the model's
-    # chunk: per (b, chunk) C B^T (Q^2 N FMA), and per head the (Q, Q)
-    # block's product with x dt (Q^2 P FMA), the read of the entering
-    # state and the state's update (Q N P FMA each).
+    # chunk: per (b, chunk) C B^T over the causal triangle (Q (Q + 1) / 2
+    # N FMA), and per head the triangle's product M x (Q (Q + 1) / 2 P
+    # FMA), the read of the entering state C S^T and the state's update
+    # (Q N P FMA each).  C B^T of bf16 operands is exact in one bf16
+    # pass; every per-head product has one f32 operand (M, the state,
+    # x dt exp(...)) and one bf16 operand (x, C, B: exact in TF32), so at
+    # f32's accuracy each takes two of 3xTF32's tensor-core passes.
+    # bound_bf16_ms is the bound of earlier PRs, every operation at the
+    # bf16 peak.
     nbytes = (sum(t.numel() * t.element_size()
                   for t in (x, dt, A, Bs, Cs, x)) + Bm * H * P * N * 4)
-    flops = 2 * Bm * (S // Q) * (Q * Q * N
-                                 + H * (Q * Q * P + 2 * Q * N * P))
-    bound_ms, bound_by = bound(nbytes, flops)
+    tri = Q * (Q + 1) // 2
+    cb_flops = 2 * Bm * (S // Q) * tri * N
+    head_flops = 2 * Bm * (S // Q) * H * (tri * P + 2 * Q * N * P)
+    flops = cb_flops + head_flops
+    bound_ms, bound_by = bound(nbytes, cb_flops, tf32_flops=2 * head_flops)
+    bound_bf16_ms = bound(nbytes, flops)[0]
     main_key = f"{cases[0][0]} bf16"
     out = {
         "name": "mamba2_ssd",
         "route": "cuda",
         "source": B5_SOURCE,
+        "cuda_core_source": B5_CORE_SOURCE,
         "replaces": B5_REPLACES,
         "launches": None,
         "max_abs_err": errs[main_key],
         **res,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_bf16_ms": bound_bf16_ms,
         "shape": main_key,
         "bytes": nbytes,
         "flops": flops,
         "errors": errs,
         "grad_rel_err": grad_err,
     }
-    log(f"[kernel] B5 ({out['shape']}): kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, library: none (no PyTorch call "
+    log(f"[kernel] B5 ({out['shape']}): kernel (chunk_tf32x3 body) "
+        f"{res['ms']:.4f} ms, CUDA-core body {res['cuda_core_ms']:.4f} ms, "
+        f"plain {res['plain_ms']:.4f} ms, library: none (no PyTorch call "
         f"computes the SSD scan), bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes} B, {flops} FLOP); the wrapper's host time per call "
+        f"{nbytes} B, {head_flops} FLOP in two TF32 passes and {cb_flops} "
+        f"at the bf16 peak; {bound_bf16_ms:.4f} ms all at the bf16 peak); the "
+        f"wrapper's host time per call "
         f"{res['wrapper_host_ms']:.4f} ms; the Function's forward and "
         f"backward (recomputed through the plain version) "
         f"{res['function_fwd_bwd_ms']:.4f} ms")
@@ -2761,7 +2848,8 @@ def read_launches() -> dict:
 
 
 def read_body_launches() -> dict:
-    """Launches of each body of the wrappers that have two (B3, B6)."""
+    """Launches of each body of the wrappers that have more than one
+    (B1, B2, B3, B4, B5, B6)."""
     return {fn.__name__: dict(fn.body_launches) for fn in _counted()
             if hasattr(fn, "body_launches")}
 
@@ -2802,9 +2890,9 @@ def _kernel_kind(name: str) -> str:
     low = name.lower()
     if "flash_mma_kernel" in name or "flash_fwd_kernel" in name:
         return "B3"
-    if "wkv_fwd_kernel" in name:
+    if any(f"wkv_{k}_kernel" in name for k in ("fwd", "state", "scan", "out")):
         return "B4"
-    if "ssd_fwd_kernel" in name:
+    if any(f"ssd_{k}_kernel" in name for k in ("fwd", "state", "scan", "out")):
         return "B5"
     if any(t in low for t in ("gemm", "nvjet", "cutlass")):
         return "GEMM f32" if "f32f32" in low or "sgemm" in low \
@@ -3099,12 +3187,26 @@ def phase_rwkv_train() -> dict:
     want = dict(n_layers=32, d_model=2560, d_ff=8960, vocab=65_536,
                 rwkv_head_dim=64, param_dtype="float32",
                 compute_dtype="bfloat16", remat=True)
-    return train_full_width(
+    out = train_full_width(
         get_config("rwkv6-3b"), want, RWKV_BATCH, kernel=wops.wkv,
         ops_module=wops,
         plain=lambda r, k, v, lw, u, s0, Q: wref.wkv_chunked_ref(
             r, k, v, lw, u, init_state=s0, chunk=Q),
         tol=RWKV_TRAIN_TOL, tag="rwkv")
+    all_on_chunk_body(out, "wkv", "rwkv")
+    return out
+
+
+def all_on_chunk_body(out: dict, wrapper: str, tag: str) -> None:
+    """Phases 7 and 8: every launch of the training run on the chunk
+    body (asserted)."""
+    bodies = out["body_launches"][wrapper]
+    n = out["launches"][wrapper]
+    if bodies != {"cuda_core": 0, "chunk_tf32x3": n} or n == 0:
+        raise AssertionError(f"{tag} training ran {wrapper}'s bodies "
+                             f"{bodies}; want all {n} launches on the "
+                             f"chunk_tf32x3 body")
+    log(f"[{tag}] {wrapper} bodies in the training run: {bodies}")
 
 
 # ---------------------------------------------------------------------------
@@ -3121,12 +3223,14 @@ def phase_mamba_train() -> dict:
     want = dict(n_layers=64, d_model=2560, vocab=50_288, ssm_state=128,
                 ssm_head_dim=64, ssm_expand=2, conv_width=4,
                 param_dtype="float32", compute_dtype="bfloat16", remat=True)
-    return train_full_width(
+    out = train_full_width(
         get_config("mamba2-2.7b"), want, MAMBA_BATCH, kernel=sops.ssd,
         ops_module=sops,
         plain=lambda x, dt, A, Bs, Cs, s0, Q: sref.ssd_chunked_ref(
             x, dt, A, Bs, Cs, init_state=s0, chunk=Q),
         tol=MAMBA_TRAIN_TOL, tag="mamba")
+    all_on_chunk_body(out, "ssd", "mamba")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3350,9 +3454,13 @@ def main() -> int:
     # B4 on its main path: phase 7's train() run.
     b4["launches"] = rwkv["launches"]["wkv"]
     b4["launches_by_run"] = {"train rwkv6-3b": b4["launches"]}
+    for body, count in rwkv["body_launches"]["wkv"].items():
+        b4[f"launches_{body}"] = count
     # B5 on its main path: phase 8's train() run.
     b5["launches"] = mamba["launches"]["ssd"]
     b5["launches_by_run"] = {"train mamba2-2.7b": b5["launches"]}
+    for body, count in mamba["body_launches"]["ssd"].items():
+        b5[f"launches_{body}"] = count
     # B6 and B7 on their main path: phase 9's ladder.
     for k, wrapper in ((b6, "matmul_tiled"), (b7, "matmul_whole")):
         k["launches"] = paper["launches"][wrapper]

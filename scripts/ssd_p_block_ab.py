@@ -74,7 +74,7 @@ def main() -> int:
             for pb in args.p_block}
 
     def run(pb):
-        with mock.patch.object(kernel, "_entry", lambda: fns[pb]):
+        with mock.patch.object(kernel, "_entry", lambda body: fns[pb]):
             kernel.launch(x, dt, A, Bs, Cs, None, *outs[pb], chunk=256)
 
     times = {pb: [] for pb in args.p_block}

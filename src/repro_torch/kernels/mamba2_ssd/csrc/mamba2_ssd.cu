@@ -66,15 +66,17 @@
 //
 // Bound: the bytes.  At mamba2-2.7b's training shape (B=4, S=4096, H=80,
 // P=64, N=128, bf16) x, y, dt, Bs, Cs and the final state are ~357 MB:
-// 0.107 ms at 3.35 TB/s, while the chunked form at Q = 256 is ~8.7e10 FLOP
-// (0.088 ms on bf16 tensor cores).  This design runs ~7.1e10 FLOP as f32
-// FMAs on the CUDA cores (1.06 ms at their 67 TFLOP/s peak), so it is far
-// from that bound: 6.38 ms on an H100 80GB HBM3 at 700 W (chip_smoke.py
-// phase 3e).  Known gaps, for later work: tensor cores (the (x dt)
-// and state products in bf16 or 3xTF32 to hold f32 accuracy), sharing C
-// B^T across the heads of a batch row, TMA staging overlapped with the
-// previous tile's math, and a backward kernel (the autograd backward
-// recomputes through the plain version).
+// 0.107 ms at 3.35 TB/s, while the chunked form at Q = 256 is ~6.5e10 FLOP
+// over its causal triangles (0.066 ms on bf16 tensor cores; at f32's
+// accuracy, two 3xTF32 passes a product with one bf16 operand, 0.26 ms).
+// This design runs ~7.1e10 FLOP as f32 FMAs on the CUDA cores (1.06 ms at
+// their 67 TFLOP/s peak), so it is far from that bound: 6.38 ms on an H100
+// 80GB HBM3 at 700 W (chip_smoke.py phase 3e).  The model's shapes (P 32
+// or 64, N a multiple of 16, chunks a multiple of 64) run the
+// chunk-parallel tensor-core body instead (mamba2_ssd_chunk.cu, picked by
+// ops.body); this body runs the rest.  Its own gaps: C B^T recomputed per
+// block, no overlap of loads with math, and no backward kernel (the
+// autograd backward recomputes through the plain version).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

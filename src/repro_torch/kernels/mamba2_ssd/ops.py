@@ -4,8 +4,17 @@ differentiable.
 ``ssd`` is the drop-in for ``models.mamba2.ssd_chunked``.  It checks what
 the kernel takes and raises on anything else, then launches the CUDA
 kernel for CUDA tensors — no fallback — or runs the plain version
-(``ref.ssd_chunked_ref``) for CPU tensors.  Each kernel launch adds one
-to ``ssd.launches``.
+(``ref.ssd_chunked_ref``) for CPU tensors.  Each call that launches the
+kernel adds one to ``ssd.launches``.
+
+The kernel has two bodies, and ``body`` picks one from the widths alone,
+in bf16 and f32 alike: P 32 or 64, N a multiple of 16 up to 128 and a
+chunk a multiple of 64 up to 256 (mamba2-2.7b's training shape and its
+smoke width) run the chunk-parallel tensor-core body
+(``csrc/mamba2_ssd_chunk.cu``: chunk states, a scan over them, then the
+outputs, on 3xTF32 mma.sync); anything else runs the CUDA-core body
+(``csrc/mamba2_ssd.cu``).  Each body counts its calls in
+``ssd.body_launches``; a body that fails to build or launch raises.
 
 Gradients: the reference has no backward kernel for B5 (no
 ``custom_vjp``; its model differentiates the jnp twin), and a B5
@@ -23,6 +32,7 @@ from repro_torch.kernels.mamba2_ssd import kernel
 from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
+BODIES = ("cuda_core", "chunk_tf32x3")
 # The widest head (P), the widest state (N) and the longest chunk the
 # wrapper takes: the kernel's shared-memory tiles are sized for P and N.
 _MAX_P = 64
@@ -69,6 +79,20 @@ def _check(x, dt, A, Bs, Cs, init_state, chunk: int) -> int:
     return Q
 
 
+def body(P: int, N: int, Q: int) -> str:
+    """Which B5 body runs operands (bf16 or f32 alike: a bf16 operand is
+    exact in TF32, an f32 one is split) with head width P, state width N
+    and chunk length Q: ``"chunk_tf32x3"`` (tensor cores) for P 32 or 64
+    (warp tiles of 16 columns over a 64-row output tile), N a multiple of
+    16 up to 128 (the MMA's depth and the tiles' widths) and Q a multiple
+    of 64 up to 256 (whole 64-row tiles; the chunk's B rows within a
+    block's shared memory); ``"cuda_core"`` otherwise."""
+    if P in (32, 64) and N % 16 == 0 and 16 <= N <= _MAX_N and \
+            Q % 64 == 0 and 64 <= Q <= _MAX_CHUNK:
+        return "chunk_tf32x3"
+    return "cuda_core"
+
+
 def _forward(x, dt, A, Bs, Cs, init_state, Q: int):
     """B5 itself: the kernel on CUDA tensors, the plain version on CPU
     ones; anything else raises."""
@@ -81,12 +105,16 @@ def _forward(x, dt, A, Bs, Cs, init_state, Q: int):
     x, dt, Bs, Cs = (t if t.stride(-1) == 1 else t.contiguous()
                      for t in (x, dt, Bs, Cs))
     A = A.contiguous()
+    which = body(P, Bs.shape[-1], Q)
     s0 = None if init_state is None else init_state.contiguous()
+    if s0 is not None and s0.data_ptr() % 16:
+        s0 = s0.clone()     # the chunk body reads it as float4
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     sf = torch.empty((B, H, P, Bs.shape[-1]), dtype=torch.float32,
                      device=x.device)
-    kernel.launch(x, dt, A, Bs, Cs, s0, y, sf, chunk=Q)
+    kernel.launch(x, dt, A, Bs, Cs, s0, y, sf, chunk=Q, body=which)
     ssd.launches += 1
+    ssd.body_launches[which] += 1
     return y, sf
 
 
@@ -138,3 +166,4 @@ def ssd(x, dt, A, Bs, Cs, *, init_state=None, chunk: int = 256):
 
 
 ssd.launches = 0
+ssd.body_launches = {b: 0 for b in BODIES}

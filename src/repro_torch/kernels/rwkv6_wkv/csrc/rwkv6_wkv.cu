@@ -49,13 +49,15 @@
 //
 // Bound: the bytes.  At rwkv6-3b's training shape (B=4, S=4096, H=40,
 // N=64, bf16) r, k, v, lw and y are 419 MB: 0.125 ms at 3.35 TB/s, while
-// the chunked form is ~3.2e10 FLOP (0.033 ms on bf16 tensor cores).  This
-// design runs f32 FMAs on the CUDA cores with one block of 8 warps per
-// SM and recomputes A per value-column block, so it is far from that
-// bound.  Known gaps, for later work: tensor cores (bf16/TF32 operands
-// need the e^+-45 factorisation rescaled per sub-chunk), TMA staging
-// overlapped with the previous chunk's math, and a backward kernel (the
-// autograd backward recomputes through the plain version).
+// the chunked form is ~2.1e10 FLOP over its causal triangles (0.022 ms on
+// bf16 tensor cores; at f32's accuracy, 3xTF32's passes, 0.11 ms).  This design runs f32 FMAs on the
+// CUDA cores with one block of 8 warps per SM and recomputes A per
+// value-column block, so it is far from that bound.  The model's shapes
+// (N a multiple of 16 up to 64, chunks a multiple of 32) run the
+// chunk-parallel tensor-core body instead (rwkv6_wkv_chunk.cu, picked by
+// ops.body); this body runs the rest (N = 128 among them).  Its own gaps:
+// no overlap of loads with math, and no backward kernel (the autograd
+// backward recomputes through the plain version).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

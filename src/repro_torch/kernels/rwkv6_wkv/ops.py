@@ -4,8 +4,17 @@ differentiable.
 ``wkv`` is the drop-in for ``models.rwkv6.wkv_chunked``.  It checks what
 the kernel takes and raises on anything else, then launches the CUDA
 kernel for CUDA tensors — no fallback — or runs the plain version
-(``ref.wkv_chunked_ref``) for CPU tensors.  Each kernel launch adds one
-to ``wkv.launches``.
+(``ref.wkv_chunked_ref``) for CPU tensors.  Each call that launches the
+kernel adds one to ``wkv.launches``.
+
+The kernel has two bodies, and ``body`` picks one from the widths alone,
+in bf16 and f32 alike: N a multiple of 16 up to 64 and a chunk a
+multiple of 32 up to 128 (rwkv6-3b's training shape and its smoke width)
+run the chunk-parallel tensor-core body (``csrc/rwkv6_wkv_chunk.cu``:
+chunk states, a scan over them, then the outputs, on 3xTF32 mma.sync);
+anything else runs the CUDA-core body (``csrc/rwkv6_wkv.cu``).  Each
+body counts its calls in ``wkv.body_launches``; a body that fails to
+build or launch raises.
 
 Gradients: the reference has no backward kernel for B4 (no
 ``custom_vjp``; its model differentiates the jnp twin), and a B4
@@ -23,6 +32,7 @@ from repro_torch.kernels.rwkv6_wkv import kernel
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
+BODIES = ("cuda_core", "chunk_tf32x3")
 # The widest key/value head and the longest chunk the kernel takes (its
 # shared-memory tiles are sized for them).
 _MAX_N = 128
@@ -63,6 +73,19 @@ def _check(r, k, v, lw, u, init_state, chunk: int) -> int:
     return Q
 
 
+def body(N: int, Q: int) -> str:
+    """Which B4 body runs operands (bf16 or f32 alike: bf16 v is exact in
+    TF32, the rest is split) with head width N and chunk length Q:
+    ``"chunk_tf32x3"`` (tensor cores) for N a multiple of 16 up to 64
+    (the MMA's depth and the tiles' widths; the chunk's r, k, v, A and
+    state within a block's shared memory) and Q a multiple of 32 up to
+    128 (whole 32-row warp tiles); ``"cuda_core"`` otherwise."""
+    if N % 16 == 0 and 16 <= N <= 64 and Q % 32 == 0 and \
+            32 <= Q <= _MAX_CHUNK:
+        return "chunk_tf32x3"
+    return "cuda_core"
+
+
 def _forward(r, k, v, lw, u, init_state, Q: int):
     """B4 itself: the kernel on CUDA tensors, the plain version on CPU
     ones; anything else raises."""
@@ -75,11 +98,15 @@ def _forward(r, k, v, lw, u, init_state, Q: int):
     r, k, v, lw = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (r, k, v, lw))
     u = u.contiguous()
+    which = body(N, Q)
     s0 = None if init_state is None else init_state.contiguous()
+    if s0 is not None and s0.data_ptr() % 16:
+        s0 = s0.clone()     # the chunk body reads it as float4
     y = torch.empty((B, S, H, N), dtype=r.dtype, device=r.device)
     sf = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-    kernel.launch(r, k, v, lw, u, s0, y, sf, chunk=Q)
+    kernel.launch(r, k, v, lw, u, s0, y, sf, chunk=Q, body=which)
     wkv.launches += 1
+    wkv.body_launches[which] += 1
     return y, sf
 
 
@@ -131,3 +158,4 @@ def wkv(r, k, v, lw, u, *, init_state=None, chunk: int = 128):
 
 
 wkv.launches = 0
+wkv.body_launches = {b: 0 for b in BODIES}

@@ -2,7 +2,9 @@
 multi-query, both on wide and narrow int8 / fp8 pools and in both bodies
 — bf16 q on the split mma.sync body, f32 on the CUDA cores —, B3 flash
 attention in both bodies — bf16 on mma.sync, f32 on the CUDA cores —,
-B4 RWKV-6 WKV, B5 Mamba-2 SSD, B6/B7 tiled matmul, B6 in its three
+B4 RWKV-6 WKV and B5 Mamba-2 SSD in both bodies — the chunk-parallel
+3xTF32 mma.sync body for the shapes their routers send it, the CUDA-core
+body otherwise —, B6/B7 tiled matmul, B6 in its three
 bodies — bf16 tiles on wgmma fed by TMA, the f32 rungs with a block per
 tile on 3xTF32 mma.sync, the rest on the CUDA cores) against
 their plain PyTorch versions on the card.  They carry the ``cuda`` marker and
@@ -515,9 +517,12 @@ def test_wkv_kernel_matches_plain(dims, dtype, state):
     B, S, H, N, Q = dims
     r, k, v, lw, u, s0 = _wkv_case(B, S, H, N, dtype=dtype, state=state)
     before = wops.wkv.launches
+    bodies = dict(wops.wkv.body_launches)
     y, sf = wops.wkv(r, k, v, lw, u, init_state=s0, chunk=Q)
     torch.cuda.synchronize()
     assert wops.wkv.launches == before + 1
+    which = wops.body(N, Q)
+    assert wops.wkv.body_launches == {**bodies, which: bodies[which] + 1}
     wy, ws = wkv_chunked_ref(r, k, v, lw, u, init_state=s0, chunk=Q)
     assert y.dtype == dtype and sf.dtype == torch.float32
     assert torch.isfinite(y).all() and torch.isfinite(sf).all()
@@ -628,9 +633,12 @@ def test_ssd_kernel_matches_plain(dims, dtype, state):
     B, S, H, P, N, Q = dims
     *ins, s0 = _ssd_case(B, S, H, P, N, dtype=dtype, state=state)
     before = sops.ssd.launches
+    bodies = dict(sops.ssd.body_launches)
     got = sops.ssd(*ins, init_state=s0, chunk=Q)
     torch.cuda.synchronize()
     assert sops.ssd.launches == before + 1
+    which = sops.body(P, N, Q)
+    assert sops.ssd.body_launches == {**bodies, which: bodies[which] + 1}
     _ssd_close(got, ssd_chunked_ref(*ins, init_state=s0, chunk=Q), dtype)
 
 
@@ -649,7 +657,10 @@ def test_ssd_kernel_holds_a_strong_decay(dtype):
     cum = torch.cumsum((ins[1].float() * ins[2].float()).reshape(
         2, 2, 256, 4), dim=2)
     assert cum.min() < -100
+    bodies = dict(sops.ssd.body_launches)
     got = sops.ssd(*ins, init_state=s0, chunk=256)
+    assert sops.ssd.body_launches["chunk_tf32x3"] == \
+        bodies["chunk_tf32x3"] + 1
     _ssd_close(got, ssd_chunked_ref(*ins, init_state=s0, chunk=256), dtype)
 
 
@@ -707,6 +718,136 @@ def test_ssd_kernel_rejects_wide_heads():
                         state=False)
     with pytest.raises(ValueError, match="P <= 64"):
         sops.ssd(*ins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [
+    (2, 96, 3, 16, 32),         # the shortest chunk the body takes
+    (1, 128, 2, 64, 128),       # one chunk: S = Q
+    (2, 512, 5, 32, 64),
+    (1, 256, 3, 48, 128),       # N = 48: 16-wide tiles
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("state", [False, True])
+def test_wkv_chunk_body_matches_plain_at_chunk_edges(dims, dtype, state):
+    """B4's chunk body at the edges of what it takes, held to
+    ``wkv_chunked_ref`` as ``test_wkv_kernel_matches_plain`` holds it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
+
+    B, S, H, N, Q = dims
+    assert wops.body(N, Q) == "chunk_tf32x3"
+    r, k, v, lw, u, s0 = _wkv_case(B, S, H, N, dtype=dtype, state=state)
+    before = wops.wkv.body_launches["chunk_tf32x3"]
+    got = wops.wkv(r, k, v, lw, u, init_state=s0, chunk=Q)
+    torch.cuda.synchronize()
+    assert wops.wkv.body_launches["chunk_tf32x3"] == before + 1
+    _ssd_close(got, wkv_chunked_ref(r, k, v, lw, u, init_state=s0, chunk=Q),
+               dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv_chunk_body_holds_the_strongest_decay(dtype):
+    """lw at the clamp's edge, [-0.35, -0.3]: cum reaches ~-45 across a
+    128-row chunk, and ri, kj span e^+-45."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
+
+    r, k, v, _, u, s0 = _wkv_case(2, 512, 4, 64, dtype=dtype, state=True)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    lw = (-0.3 - 0.05 * torch.rand(r.shape, generator=g, device="cuda")
+          ).to(dtype)
+    assert float(lw.float().reshape(2, 4, 128, 4, 64).sum(2).min()) < -38
+    got = wops.wkv(r, k, v, lw, u, init_state=s0, chunk=128)
+    _ssd_close(got, wkv_chunked_ref(r, k, v, lw, u, init_state=s0,
+                                    chunk=128), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scan_chunk_bodies_read_unaligned_rows(dtype):
+    """Operands whose rows are not 16-byte aligned (a view one element
+    into a wider last axis): both chunk bodies read them element by
+    element, and match the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.mamba2_ssd import ops as sops
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref
+    from repro_torch.kernels.rwkv6_wkv import ops as wops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_chunked_ref
+
+    def shifted(t):
+        wide = torch.zeros((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
+                           device=t.device)
+        wide[..., 1:] = t
+        return wide[..., 1:]
+
+    r, k, v, lw, u, s0 = _wkv_case(2, 256, 4, 64, dtype=dtype, state=True)
+    got = wops.wkv(*map(shifted, (r, k, v, lw)), u, init_state=s0,
+                   chunk=128)
+    _ssd_close(got, wkv_chunked_ref(r, k, v, lw, u, init_state=s0,
+                                    chunk=128), dtype)
+    x, dt, A, Bs, Cs, s0 = _ssd_case(2, 512, 4, 64, 128, dtype=dtype,
+                                     state=True)
+    got = sops.ssd(shifted(x), dt, A, shifted(Bs), shifted(Cs),
+                   init_state=s0, chunk=256)
+    _ssd_close(got, ssd_chunked_ref(x, dt, A, Bs, Cs, init_state=s0,
+                                    chunk=256), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [
+    (2, 256, 4, 32, 16, 64),        # the shortest chunk the body takes
+    (1, 256, 3, 64, 32, 256),       # one chunk: S = Q; 3 heads
+    (2, 512, 21, 64, 128, 128),     # heads past one block's group
+    (1, 384, 2, 32, 48, 192),       # three row tiles; N = 48
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("state", [False, True])
+def test_ssd_chunk_body_matches_plain_at_chunk_edges(dims, dtype, state):
+    """B5's chunk body at the edges of what it takes, held to
+    ``ssd_chunked_ref`` as ``test_ssd_kernel_matches_plain`` holds it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.mamba2_ssd import ops as sops
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref
+
+    B, S, H, P, N, Q = dims
+    assert sops.body(P, N, Q) == "chunk_tf32x3"
+    *ins, s0 = _ssd_case(B, S, H, P, N, dtype=dtype, state=state)
+    before = sops.ssd.body_launches["chunk_tf32x3"]
+    got = sops.ssd(*ins, init_state=s0, chunk=Q)
+    torch.cuda.synchronize()
+    assert sops.ssd.body_launches["chunk_tf32x3"] == before + 1
+    _ssd_close(got, ssd_chunked_ref(*ins, init_state=s0, chunk=Q), dtype)
+
+
+@pytest.mark.cuda
+def test_scan_chunk_bodies_raise_on_what_they_do_not_take():
+    """A body is picked before the launch and never falls back: the chunk
+    body's entry point refuses odd widths, and the binding raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.mamba2_ssd import kernel as skernel
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkernel
+
+    x, dt, A, Bs, Cs, _ = _ssd_case(1, 200, 3, 20, 10, dtype=torch.float32,
+                                    state=False)
+    y, sf = torch.empty_like(x), torch.empty((1, 3, 20, 10), device="cuda")
+    with pytest.raises(RuntimeError, match="chunk_tf32x3"):
+        skernel.launch(x, dt, A, Bs, Cs, None, y, sf, chunk=40,
+                       body="chunk_tf32x3")
+    r, k, v, lw, u, _ = _wkv_case(1, 60, 2, 10, dtype=torch.float32,
+                                  state=False)
+    y, sf = torch.empty_like(r), torch.empty((1, 2, 10, 10), device="cuda")
+    with pytest.raises(RuntimeError, match="chunk_tf32x3"):
+        wkernel.launch(r, k, v, lw, u, None, y, sf, chunk=30,
+                       body="chunk_tf32x3")
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _tf32x3 import WKV_TOL, mm, within_wkv_tol
 from repro.kernels.mamba2_ssd.ops import ssd as jax_ssd
 from repro.kernels.mamba2_ssd.ref import ssd_ref
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
@@ -263,3 +264,138 @@ def test_other_devices_raise_instead_of_falling_back():
     args = [t.to("meta") for t in _ops_args()]
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.ssd(*args)
+
+
+# ---------------------------------------------------------------------------
+# The chunk body (csrc/mamba2_ssd_chunk.cu): its routing, and its
+# arithmetic emulated in torch against the JAX kernel
+# ---------------------------------------------------------------------------
+
+def _ssd_chunk_emulated(x, dt, A, Bs, Cs, s0, chunk, products="tf32x3"):
+    """The chunk body's arithmetic in torch, launch by launch: (1) cum
+    summed row by row in f32, each chunk's own state (x dt exp(last -
+    cum))^T B and exp(last); (2) the entering states, S tot + st; (3) C
+    B^T, M = (C B^T) exp(cum_i - cum_j) dt_j below the diagonal, y = M x
+    + exp(cum) (C S^T), rounded once."""
+    B, S, H, P = x.shape
+    N = Bs.shape[-1]
+    Q, nc = chunk, S // chunk
+    xc = x.float().reshape(B, nc, Q, H, P).transpose(2, 3)   # (B,nc,H,Q,P)
+    dtc = dt.float().reshape(B, nc, Q, H).transpose(2, 3)    # (B,nc,H,Q)
+    Bc = Bs.float().reshape(B, nc, 1, Q, N)
+    Cc = Cs.float().reshape(B, nc, 1, Q, N)
+    da = dtc * A.float()[:, None]
+    cum = torch.empty_like(da)
+    run = torch.zeros_like(da[..., 0])
+    for i in range(Q):
+        run = run + da[..., i]
+        cum[..., i] = run
+    last = cum[..., -1:]
+    xw = xc * dtc[..., None] * torch.exp(last - cum)[..., None]
+    st = mm(xw.transpose(-1, -2), Bc, products)             # (B,nc,H,P,N)
+    tot = torch.exp(last[..., 0])
+    state = (torch.zeros((B, H, P, N)) if s0 is None else s0.float())
+    enter = []
+    for c in range(nc):
+        enter.append(state)
+        state = state * tot[:, c, :, None, None] + st[:, c]
+    enter = torch.stack(enter, 1)
+    CB = mm(Cc, Bc.transpose(-1, -2), products)             # (B,nc,1,Q,Q)
+    upper = torch.ones(Q, Q, dtype=torch.bool).triu(1)
+    M = CB * torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(
+        upper, float("-inf"))) * dtc[..., None, :]
+    yo = mm(Cc, enter.transpose(-1, -2), products) * torch.exp(cum)[..., None]
+    y = mm(M, xc, products) + yo
+    return y.transpose(2, 3).reshape(B, S, H, P).to(x.dtype), state
+
+
+EMULATED = [                     # (B, S, H, P, N, chunk, strong decay)
+    (2, 64, 4, 32, 16, 64, False),     # mamba2-2.7b smoke width
+    (1, 512, 2, 64, 128, 256, False),  # mamba2-2.7b's heads, two chunks
+    (1, 512, 2, 64, 128, 256, True),   # cum passes -100 inside a chunk
+]
+
+
+@pytest.mark.parametrize("P,N,Q,want", [
+    (64, 128, 256, "chunk_tf32x3"),   # mamba2-2.7b training
+    (32, 16, 128, "chunk_tf32x3"),    # smoke width, chip_smoke phase 3e
+    (32, 16, 64, "chunk_tf32x3"),     # smoke width, chunk 64
+    (64, 128, 64, "chunk_tf32x3"),
+    (20, 10, 40, "cuda_core"),        # P, N not multiples of 16
+    (48, 128, 100, "cuda_core"),      # P 48, chunk not a multiple of 64
+    (8, 8, 8, "cuda_core"),
+    (16, 16, 64, "cuda_core"),        # P below one 32-row warp tile
+    (64, 136, 256, "cuda_core"),      # N past 128
+    (64, 128, 32, "cuda_core"),       # chunk below one 64-row tile
+])
+def test_body_routes_the_training_and_smoke_shapes_to_the_chunk_body(
+        P, N, Q, want):
+    """The router reads the widths alone: bf16 and f32 operands of one
+    shape take the same body."""
+    assert ops.body(P, N, Q) == want
+
+
+def test_the_models_route_to_the_chunk_body():
+    """mamba2-2.7b at its training shape (chunk 256 at seq 4096) and its
+    smoke config at the CLI's smoke shape (seq 128, chunk 128)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    for cfg, S in ((get_config("mamba2-2.7b"), 4096),
+                   (get_smoke("mamba2-2.7b"), 128)):
+        assert ops.body(cfg.ssm_head_dim, cfg.ssm_state,
+                        min(256, S)) == "chunk_tf32x3", cfg.name
+
+
+def test_cpu_calls_count_no_launch_of_either_body():
+    t = _torch(_case(2, 64, 4, 32, 16, False, True, seed=5), torch.float32)
+    before = (ops.ssd.launches, dict(ops.ssd.body_launches))
+    ops.ssd(*(t[n] for n in NAMES), init_state=t["s0"], chunk=64)
+    assert (ops.ssd.launches, ops.ssd.body_launches) == before
+    assert set(ops.ssd.body_launches) == {"cuda_core", "chunk_tf32x3"}
+
+
+@pytest.mark.parametrize("state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("case", EMULATED)
+def test_chunk_body_arithmetic_matches_jax_kernel(case, kind, state):
+    """The chunk body's split (chunk states, the scan, the outputs) and
+    its 3xTF32 products, emulated in torch, within WKV_TOL of
+    ``ssd_pallas`` in interpret mode."""
+    B, S, H, P, N, chunk, strong = case
+    jdt, tdt = DTYPES[kind]
+    assert ops.body(P, N, chunk) == "chunk_tf32x3"
+    x = _case(B, S, H, P, N, strong, state, seed=sum(case[:6]) + 1)
+    if strong:
+        cum = np.cumsum((x["dt"] * x["A"]).reshape(B, S // chunk, chunk, H),
+                        2)
+        assert cum.min() < -100
+    t = _torch(x, tdt)
+    y, sf = _ssd_chunk_emulated(*(t[n] for n in NAMES), t["s0"], chunk)
+    assert y.dtype == tdt and y.shape == (B, S, H, P)
+    s0 = None if x["s0"] is None else jnp.asarray(x["s0"])
+    jy, js = jax_ssd(*_jax(x, jdt), init_state=s0, chunk=chunk,
+                     interpret=True)
+    ok, errs = within_wkv_tol(y, sf, np.asarray(jy.astype(jnp.float32)),
+                               np.asarray(js), kind)
+    assert ok, errs
+
+
+@pytest.mark.parametrize("products", ["tf32", "bf16"])
+def test_one_pass_products_break_the_tolerance(products):
+    """Why 3xTF32: with one TF32 or one bf16 product the same arithmetic
+    misses WKV_TOL against the JAX kernel at mamba2-2.7b's heads (f32
+    inputs, a state given), where 3xTF32 holds it."""
+    B, S, H, P, N, chunk, strong = EMULATED[1]
+    x = _case(B, S, H, P, N, strong, True, seed=31)
+    t = _torch(x, torch.float32)
+    jy, js = jax_ssd(*_jax(x, jnp.float32), init_state=jnp.asarray(x["s0"]),
+                     chunk=chunk, interpret=True)
+    want = (np.asarray(jy), np.asarray(js))
+    ins = [t[n] for n in NAMES]
+    ok3, errs3 = within_wkv_tol(*_ssd_chunk_emulated(*ins, t["s0"], chunk),
+                                 *want, "f32")
+    assert ok3, errs3
+    ok1, errs1 = within_wkv_tol(
+        *_ssd_chunk_emulated(*ins, t["s0"], chunk, products=products),
+        *want, "f32")
+    assert not ok1 and max(errs1) > 2 * WKV_TOL, errs1

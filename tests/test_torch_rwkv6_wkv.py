@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _tf32x3 import WKV_TOL, mm, within_wkv_tol
 from repro.kernels.rwkv6_wkv.kernel import wkv_pallas
 from repro.kernels.rwkv6_wkv.ref import wkv_ref as jax_wkv_ref
 from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked
@@ -234,3 +235,131 @@ def test_other_devices_raise_instead_of_falling_back():
     args = [t.to("meta") for t in _ops_args()]
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.wkv(*args)
+
+
+# ---------------------------------------------------------------------------
+# The chunk body (csrc/rwkv6_wkv_chunk.cu): its routing, and its
+# arithmetic emulated in torch against the JAX kernel
+# ---------------------------------------------------------------------------
+
+def _wkv_chunk_emulated(r, k, v, lw, u, s0, chunk, products="tf32x3"):
+    """The chunk body's arithmetic in torch, launch by launch: (1) cum
+    summed row by row in f32, each chunk's own state (k exp(last -
+    cum))^T v and exp(last); (2) the entering states, S tot + st; (3) ri
+    = r exp(cum - lw), kj = k exp(-cum), A = ri kj^T below the diagonal
+    with sum_c r u k on it, y = A v + ri S, rounded once."""
+    B, S, H, N = r.shape
+    Q, nc = chunk, S // chunk
+    f32 = lambda t: t.float().reshape(B, nc, Q, H, N).transpose(2, 3)
+    rc, kc, vc, lwc = f32(r), f32(k), f32(v), f32(lw)      # (B,nc,H,Q,N)
+    cum = torch.empty_like(lwc)
+    run = torch.zeros_like(lwc[..., 0, :])
+    for i in range(Q):
+        run = run + lwc[..., i, :]
+        cum[..., i, :] = run
+    last = cum[..., -1:, :]
+    st = mm((kc * torch.exp(last - cum)).transpose(-1, -2), vc, products)
+    tot = torch.exp(last[..., 0, :])                        # (B,nc,H,N)
+    state = (torch.zeros((B, H, N, N)) if s0 is None else s0.float())
+    enter = []
+    for c in range(nc):
+        enter.append(state)
+        state = state * tot[:, c, :, :, None] + st[:, c]
+    enter = torch.stack(enter, 1)
+    ri = rc * torch.exp(cum - lwc)
+    kj = kc * torch.exp(-cum)
+    A = torch.tril(mm(ri, kj.transpose(-1, -2), products), -1)
+    A = A + torch.diag_embed((rc * u.float()[:, None, :] * kc).sum(-1))
+    y = mm(A, vc, products) + mm(ri, enter, products)
+    return y.transpose(2, 3).reshape(B, S, H, N).to(r.dtype), state
+
+
+def _strongest(x):
+    """The clamp's edge: lw in [-0.35, -0.3], so cum reaches ~-45 across
+    a 128-row chunk and ri, kj span e^+-45."""
+    r = np.random.default_rng(7)
+    x["lw"] = (-0.3 - 0.05 * r.random(x["lw"].shape)).astype(np.float32)
+    return x
+
+
+EMULATED = [                     # (B, S, H, N, chunk, strongest decay)
+    (2, 128, 4, 16, 64, False),  # rwkv6-3b smoke width
+    (1, 256, 2, 64, 128, False),  # rwkv6-3b's heads, two chunks
+    (1, 256, 2, 64, 128, True),   # lw at the clamp's edge
+]
+
+
+@pytest.mark.parametrize("N,Q,want", [
+    (64, 128, "chunk_tf32x3"),   # rwkv6-3b training
+    (16, 64, "chunk_tf32x3"),    # smoke width, chip_smoke phase 3d
+    (16, 128, "chunk_tf32x3"),
+    (64, 32, "chunk_tf32x3"),
+    (64, 48, "cuda_core"),       # chunk not a multiple of 32
+    (8, 16, "cuda_core"),        # N below the MMA's depth
+    (128, 128, "cuda_core"),     # N past 64: the block's tiles overflow
+    (10, 30, "cuda_core"),
+])
+def test_body_routes_the_training_and_smoke_shapes_to_the_chunk_body(
+        N, Q, want):
+    """The router reads the widths alone: bf16 and f32 operands of one
+    shape take the same body."""
+    assert ops.body(N, Q) == want
+
+
+def test_the_models_route_to_the_chunk_body():
+    """rwkv6-3b at its training shape (chunk 128 at seq 4096) and its
+    smoke config at the CLI's smoke shape (seq 128)."""
+    from repro_torch.configs import get_config, get_smoke
+
+    for cfg, S in ((get_config("rwkv6-3b"), 4096),
+                   (get_smoke("rwkv6-3b"), 128)):
+        assert ops.body(cfg.rwkv_head_dim, min(128, S)) == "chunk_tf32x3", \
+            cfg.name
+
+
+def test_cpu_calls_count_no_launch_of_either_body():
+    t = _torch(_case(2, 128, 4, 16, True, seed=5), torch.float32)
+    before = (ops.wkv.launches, dict(ops.wkv.body_launches))
+    ops.wkv(t["r"], t["k"], t["v"], t["lw"], t["u"], init_state=t["s0"],
+            chunk=64)
+    assert (ops.wkv.launches, ops.wkv.body_launches) == before
+    assert set(ops.wkv.body_launches) == {"cuda_core", "chunk_tf32x3"}
+
+
+@pytest.mark.parametrize("state", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("case", EMULATED)
+def test_chunk_body_arithmetic_matches_jax_kernel(case, kind, state):
+    """The chunk body's split (chunk states, the scan, the outputs) and
+    its 3xTF32 products, emulated in torch, within WKV_TOL of
+    ``wkv_pallas`` in interpret mode."""
+    B, S, H, N, chunk, strongest = case
+    jdt, tdt = DTYPES[kind]
+    assert ops.body(N, chunk) == "chunk_tf32x3"
+    x = _case(B, S, H, N, state, seed=sum(case[:5]) + 1)
+    if strongest:
+        x = _strongest(x)
+    t = _torch(x, tdt)
+    y, sf = _wkv_chunk_emulated(t["r"], t["k"], t["v"], t["lw"], t["u"],
+                                t["s0"] if state else None, chunk)
+    assert y.dtype == tdt and y.shape == (B, S, H, N)
+    ok, errs = within_wkv_tol(y, sf, *_jax_kernel(x, chunk, jdt), kind)
+    assert ok, errs
+
+
+@pytest.mark.parametrize("products", ["tf32", "bf16"])
+def test_one_pass_products_break_the_tolerance(products):
+    """Why 3xTF32: with one TF32 or one bf16 product the same arithmetic
+    misses WKV_TOL against the JAX kernel at rwkv6-3b's heads (f32
+    inputs, a state given), where 3xTF32 holds it."""
+    B, S, H, N, chunk, _ = EMULATED[1]
+    x = _case(B, S, H, N, True, seed=31)
+    t = _torch(x, torch.float32)
+    want = _jax_kernel(x, chunk, jnp.float32)
+    ins = [t[n] for n in ("r", "k", "v", "lw", "u", "s0")]
+    ok3, errs3 = within_wkv_tol(*_wkv_chunk_emulated(*ins, chunk), *want,
+                                 "f32")
+    assert ok3, errs3
+    ok1, errs1 = within_wkv_tol(
+        *_wkv_chunk_emulated(*ins, chunk, products=products), *want, "f32")
+    assert not ok1 and max(errs1) > 2 * WKV_TOL, errs1
