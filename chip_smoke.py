@@ -102,13 +102,16 @@ Phases (any failure raises, and the script exits non-zero):
               4096^3 must run the wgmma body, O3 and O4 the 3xTF32 body,
               O1 and O2 the CUDA-core body; each tensor-core body's time
               is read beside the CUDA-core body's at the same blocks;
-  4. ladder — smoke-width qwen3-8b on the card at O2, O4, O5, O6-gather,
-              O6-kernel, with chunked prefill (chunks 3 and 8) on O5,
-              O6-gather and O6-kernel, and at O7 with the smollm-360m
-              smoke drafter (K = 2, 4; gather and kernel verify):
-              identical greedy tokens on a mixed request set with
-              mid-flight arrivals and planted eos; a self-draft run must
-              accept every draft;
+  4. ladder — smoke-width qwen3-8b on the card at O0, O1, O2, O4, O5,
+              O6-gather, O6-kernel, with chunked prefill (chunks 3 and 8)
+              on O5, O6-gather and O6-kernel, and at O7 with the
+              smollm-360m smoke drafter (K = 2, 4; gather and kernel
+              verify): identical greedy tokens on a mixed request set
+              with mid-flight arrivals and planted eos; a self-draft run
+              must accept every draft; prefill -> insert -> generate on
+              O5, O6-gather and O6-kernel with chunks of 8 and on O0, each
+              with the prestaged run's tokens; ``compact()`` after every
+              tick on O6-kernel, blocks conserved, tokens unchanged;
   5. full   — qwen3-8b at its published widths in bf16 with random
               weights from a seed, 8 requests (prompts 16-256, 32 new
               tokens each) at batch 8, max_seq 1024, T=16, O6-kernel:
@@ -141,6 +144,26 @@ Phases (any failure raises, and the script exits non-zero):
               36 loose); smoke width on the card against the CPU under
               ``kvquant.tolerance_contract``; token agreement with the
               bf16 runs reported;
+     5o.    — the un-pipelined rungs at full width: 4 requests (prompts
+              16-64, 8 new tokens) at batch 4, max_seq 256, served at O0
+              (a batch-1 call per request per tick, the cache rebuilt at
+              each admission), O1, O2 and O5: ms per tick, tokens/s and
+              peak memory per rung, no kernel launched; O2's tokens equal
+              O5's; where O0/O1's part from O5's, the first divergent
+              position's batch-1 logits are held to the batched step's
+              within 3e-2 of their scale (ROADMAP C12);
+     5s.    — the async server (``launch.server``) over phase 5's engine
+              (O6-kernel, chunk 64, batch 8, run (b)'s pool): 16 requests
+              (prompts 16-256, 16-32 new tokens) drained closed-loop for
+              the drain rate, then replayed open-loop through
+              ``serve_trace`` at 0.5x and 2x that rate (poisson) and 1x
+              (bursty): each run's ``latency_metrics`` row (TTFT and TPOT
+              p50/p99, tok/s, goodput at the reference's SLOs), every
+              request finished with the closed-loop tokens, B1 and B2
+              launched, all on the split body; then ``prefill`` ->
+              ``insert`` of a 720-token prompt (B2 on a private pool)
+              while 7 others decode, and ``generate``, with the tokens of
+              submitting it;
   6. train  — smollm-360m at its published widths (32 layers, d_model
               960, 15 heads, 5 kv heads, head_dim 64, d_ff 2560, vocab
               49,152), f32 masters, bf16 compute, remat full, trained 5
@@ -187,10 +210,19 @@ Phases (any failure raises, and the script exits non-zero):
               the analytic model's), with O2 -> O3 read in two steps
               (PE duplication on the CUDA cores, then the tensor cores);
               ``machsuite.gemm.run`` at every level on the card at 32 x
-              32, held to the float64 oracle.
+              32, held to the float64 oracle;
+ 10. walk   — ``python -m repro_torch.autotune --serve --arch qwen3-8b``
+              in this process at the reference's defaults (smoke width,
+              O0 -> O7, the paged-attention, prefill-chunk, draft-K and
+              pool-dtype races): each round's level, wall, tok/s and the
+              races' walls; tokens identical across the kept bf16 rungs;
+              B1 launched by the paged-attention race, all on the split
+              body.
 
-Prints the card line and a JSON object of kernel numbers on lines before
-the last, writes the detailed numbers to ``chiprun_out/chip_smoke.json``,
+Prints each phase's wall, the card line and a JSON object of kernel
+numbers on lines before the last, writes the detailed numbers to
+``chiprun_out/chip_smoke.json`` (and phase 10's trajectory under
+``chiprun_out/autotune/``),
 and ends with ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of this repository beside it, it exits non-zero and
 prints no result.
@@ -1807,14 +1839,16 @@ def phase_ladder(device="cuda") -> dict:
     """Smoke-width qwen3-8b on the card: every rung, chunked prefill on
     O5 / O6-gather / O6-kernel with chunks 3 and 8, and O7 with the
     smollm-360m smoke drafter (K = 2, 4; gather and kernel verify), all
-    with the O5 greedy tokens; and a self-draft run that must accept
-    every draft."""
+    with the O5 greedy tokens; a self-draft run that must accept every
+    draft; prefill -> insert -> generate on O5, O6-gather and O6-kernel
+    with chunks and on O0, each with the prestaged run's tokens; and
+    ``compact()`` after every tick on O6-kernel."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke
     from repro_torch.core.optlevel import BestEffortConfig, OptLevel
     from repro_torch.models import get_model
-    from repro_torch.serving import DecodeEngine
+    from repro_torch.serving import DecodeEngine, Request
 
     cfg = get_smoke("qwen3-8b")
     model = get_model(cfg, device=device)
@@ -1825,6 +1859,8 @@ def phase_ladder(device="cuda") -> dict:
     pool = dict(kv_block_size=4, kv_pool_blocks=20)
     rungs = {
         "O5": dict(level=OptLevel.O5),
+        "O0": dict(level=OptLevel.O0),
+        "O1": dict(level=OptLevel.O1),
         "O2": dict(level=OptLevel.O2),
         "O4": dict(level=OptLevel.O4),
         "O6-gather": dict(level=OptLevel.O6, **pool),
@@ -1887,8 +1923,51 @@ def phase_ladder(device="cuda") -> dict:
         log(f"[ladder] O7-{attn} self-draft K=4: accept_rate 1.0, "
             f"{st['eff_tok_per_step']:.2f} tokens per window, tokens "
             f"identical to O5")
+
+    # prefill -> insert -> generate: the first four requests prefilled
+    # on standalone batch-1 caches, inserted, drained — the tokens of
+    # submitting them (first[:4], the prestaged O5 run).
+    sub = mix[:4]
+    inserted = {}
+    for name in ("O5 chunk 8", "O6-gather chunk 8", "O6-kernel chunk 8",
+                 "O0"):
+        eng = DecodeEngine(model, params, batch_size=4, max_seq=32,
+                           config=BestEffortConfig(**rungs[name]))
+        results = [eng.prefill(p, max_new_tokens=n) for p, n in sub]
+        for r in results:
+            eng.insert(r)
+        fin = {r.rid: r.generated for r in eng.generate()}
+        got = [fin[r.request.rid] for r in results]
+        firsts = [r.first_token for r in results]
+        if got != first[:4] or firsts != [g[0] for g in first[:4]]:
+            raise AssertionError(f"ladder: prefill->insert->generate on "
+                                 f"{name}: {got} != prestaged {first[:4]}")
+        inserted[name] = sum(map(len, got))
+        log(f"[ladder] prefill->insert->generate {name}: "
+            f"{inserted[name]} tokens identical to the prestaged run")
+
+    # compact() after every tick on O6-kernel: live blocks move to the
+    # lowest ids, every block accounted for, tokens unchanged.
+    eng = DecodeEngine(model, params, batch_size=4, max_seq=32,
+                       config=BestEffortConfig(**rungs["O6-kernel"]))
+    rids = [eng.submit(Request(prompt=list(p), max_new_tokens=n))
+            for p, n in mix]
+    moved = 0
+    while eng.step() or eng.queue:
+        before = eng.cache_mgr.tables.copy()
+        eng.cache_mgr.compact()
+        eng.cache_mgr.check_conservation()
+        moved += int((before != eng.cache_mgr.tables).sum())
+    fin = {r.rid: r.generated for r in eng.finished}
+    if [fin[rid] for rid in rids] != first or not moved:
+        raise AssertionError(f"ladder: compact on O6-kernel moved {moved} "
+                             f"table entries; tokens equal to O5: "
+                             f"{[fin[rid] for rid in rids] == first}")
+    log(f"[ladder] O6-kernel compact() after every tick: {moved} table "
+        f"entries moved, blocks conserved, tokens identical to O5")
     return {"requests": len(mix), "tokens": sum(map(len, ref)),
-            "rungs": list(rungs), "spec": spec}
+            "rungs": list(rungs), "spec": spec, "inserted": inserted,
+            "compact_moved": moved}
 
 
 # ---------------------------------------------------------------------------
@@ -2314,6 +2393,10 @@ def phase_full(card: str) -> dict:
     res["narrow"] = phase_narrow(model, params, cut_cfg, cut_params, reqs,
                                  prestaged_tokens=prestaged,
                                  bf16_ms_per_tick=res["ms_per_tick"], **geo)
+    torch.cuda.empty_cache()
+    res["unpipelined"] = phase_unpipelined(model, params, card)
+    res["server"] = phase_server(model, params, card,
+                                 pool_blocks=pool_blocks)
     return res
 
 
@@ -2787,6 +2870,309 @@ def phase_narrow(model, params, cut_cfg, cut_params, reqs, *,
     res.update(runs=runs, narrow_blocks=narrow_blocks,
                bf16_pool=bf16, requests16=len(reqs16))
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 5o: the un-pipelined rungs O0/O1 at full width
+# ---------------------------------------------------------------------------
+
+# 5o: where O0/O1's bf16 tokens part from O5's, the logits of the first
+# divergent position, batch-1 (O0/O1's M = 1 products) against the
+# batched step (M = B), within C5's bound of the logits' scale.
+C12_TOL = 3e-2
+
+
+def unpipelined_divergence(model, params, reqs, want, got, *, B,
+                           max_seq) -> dict:
+    """The first (request, token) where ``got`` parts from ``want``: the
+    request's history up to it (prompt + ``want``'s tokens before it) fed
+    a token at a time through a batch-1 decode step and through a
+    batch-``B`` one (the request in row 0; the other rows' contents do
+    not enter row 0), and the two logits at its last position compared
+    (max |dlogit| / max |logit|)."""
+    import torch
+
+    k = next(i for i, (w, g) in enumerate(zip(want, got)) if w != g)
+    j = next(t for t, (a, b) in enumerate(zip(want[k], got[k])) if a != b)
+    hist = list(reqs[k][0]) + list(want[k][:j])
+    dev = model.device
+    one, batch = model.init_cache(1, max_seq), model.init_cache(B, max_seq)
+    toks = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    for p, tok in enumerate(hist):
+        l1, _ = model.decode_step(params, one,
+                                  torch.tensor([[tok]], device=dev),
+                                  torch.tensor([p], device=dev))
+        toks[0, 0] = tok
+        lb, _ = model.decode_step(params, batch, toks,
+                                  torch.full((B,), p, device=dev))
+    a, b = l1[0], lb[0]
+    return {"request": k, "token": j, "position": len(hist) - 1,
+            "rel": _rel(a, b), "logits_differing": int((a != b).sum()),
+            "argmax_batch1": int(a.argmax()),
+            "argmax_batched": int(b.argmax()),
+            "want": want[k][j], "got": got[k][j]}
+
+
+def phase_unpipelined(model, params, card: str) -> dict:
+    """Phase 5o: qwen3-8b at full width served at O0 (per-request loop,
+    a fresh cache at every admission), O1 (the same loop on a
+    persistent cache), O2 (one batched step) and O5: 4 requests (prompts
+    16-64, 8 new tokens) at batch 4, max_seq 256, bf16.  ms per tick,
+    tokens/s and peak memory per rung; O2's tokens must equal O5's; where
+    O0/O1's part from O5's, the first divergent position's logits are
+    held to the batched step's within ``C12_TOL`` (ROADMAP C12)."""
+    import torch
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.launch.serve import demo_requests
+    from repro_torch.serving import DecodeEngine
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    B, max_seq = 4, 256
+    reqs = demo_requests(cfg, 4, seed=0, prompt_len=(16, 65),
+                         max_new=(8, 9))
+    cache_bytes = sum(math.prod(shape) * dt.itemsize for shape, dt in
+                      model.cache_spec(B, max_seq).values())
+    runs = {}
+    for level in (OptLevel.O5, OptLevel.O0, OptLevel.O1, OptLevel.O2):
+        name = f"O{int(level)}"
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
+                           config=BestEffortConfig(level=level))
+        reset_launches()
+        out = serve_counted(eng, reqs)
+        launches = read_launches()
+        if any(launches.values()):
+            raise AssertionError(f"5o {name}: the contiguous rungs run no "
+                                 f"kernel, launched {launches}")
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["peak_over_weights_bytes"] = out["peak_bytes"] - base
+        if any(len(g) != n for g, (_, n) in zip(out["generated"], reqs)):
+            raise AssertionError(f"5o {name}: not every request got its "
+                                 f"tokens")
+        runs[name] = out
+        log(f"[5o] {name} on {card}: {out['tokens']} tokens in "
+            f"{out['ticks']} ticks / {out['wall_s']:.3f} s = "
+            f"{out['tok_per_s']:.1f} tok/s, {out['ms_per_tick']:.2f} "
+            f"ms/tick, {out['dispatches']} dispatches; peak "
+            f"{out['peak_bytes'] / 2**30:.3f} GiB "
+            f"({out['peak_over_weights_bytes'] / 2**30:.3f} GiB over what "
+            f"was allocated before; the cache is "
+            f"{cache_bytes / 2**30:.3f} GiB)")
+        del eng
+        torch.cuda.empty_cache()
+    want = runs["O5"]["generated"]
+    if runs["O2"]["generated"] != want:
+        raise AssertionError(f"5o: O2 tokens {runs['O2']['generated']} != "
+                             f"O5 {want}")
+    c12 = {}
+    for name in ("O0", "O1"):
+        got = runs[name]["generated"]
+        same = _same_tokens(got, want)
+        runs[name]["equal_to_o5"] = same
+        if got == want:
+            log(f"[5o] {name}: tokens identical to O5")
+            continue
+        d = unpipelined_divergence(model, params, reqs, want, got, B=B,
+                                   max_seq=max_seq)
+        c12[name] = d
+        log(f"[5o] {name}: {same[0]}/{same[1]} tokens equal to O5; first "
+            f"divergence request {d['request']} token {d['token']} "
+            f"(position {d['position']}): O5 {d['want']}, {name} "
+            f"{d['got']}; batch-1 vs batch-{B} logits there: max |dlogit| "
+            f"/ max |logit| {d['rel']:.3e} (bound {C12_TOL}), "
+            f"{d['logits_differing']} logits differ, argmax "
+            f"{d['argmax_batch1']} / {d['argmax_batched']}")
+        if not d["rel"] <= C12_TOL:
+            raise AssertionError(f"5o {name}: batch-1 logits part from the "
+                                 f"batched step's beyond {C12_TOL}: {d}")
+    for out in runs.values():
+        out.pop("generated")
+    wall = time.perf_counter() - t_phase
+    log(f"[5o] done in {wall:.1f} s")
+    return {"card": card, "batch": B, "max_seq": max_seq,
+            "prompt_lens": [len(p) for p, _ in reqs], "new_tokens": 8,
+            "cache_bytes": cache_bytes, "runs": runs, "c12": c12,
+            "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5s: the async server at full width
+# ---------------------------------------------------------------------------
+
+def _trace_line(tag: str, m: dict, card: str) -> str:
+    return (f"{tag} on {card}: {m['requests']} requests, {m['tokens']} "
+            f"tokens in {m['makespan_s']:.3f} s, {m['ticks']} ticks; TTFT "
+            f"p50 {m['ttft_p50_s'] * 1e3:.1f} / p99 "
+            f"{m['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50 "
+            f"{m['tpot_p50_s'] * 1e3:.2f} / p99 {m['tpot_p99_s'] * 1e3:.2f} "
+            f"ms, {m['tok_per_s']:.1f} tok/s, goodput "
+            f"{m['goodput_rps']:.3f} req/s ({m['good_requests']}/"
+            f"{m['requests']} within TTFT {m['slo_ttft_s']} s and TPOT "
+            f"{m['slo_tpot_s']} s)")
+
+
+def phase_server(model, params, card: str, *, pool_blocks: int) -> dict:
+    """Phase 5s: phase 5's engine (O6, ``paged_attn="kernel"``, chunk 64,
+    batch 8, max_seq 1024, T=16, run (b)'s bf16 pool) behind the async
+    server.  A fixed set of 16 requests (prompts 16-256, 16-32 new
+    tokens, from ``make_trace``'s seed 7) drained closed-loop gives the
+    engine's drain rate; ``serve_trace`` then replays them open-loop at
+    0.5x and 2x that rate (poisson) and at 1x (bursty), each row's
+    ``latency_metrics`` at the reference's SLOs, every request finished
+    with the closed-loop run's tokens, B1 and B2 launched, all on the
+    split body.  Then ``prefill`` -> ``insert`` of a 720-token prompt
+    while 7 others decode, and ``generate``: the tokens of submitting
+    it at the same tick."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.launch.server import (latency_metrics, make_trace,
+                                           serve_trace)
+    from repro_torch.serving import DecodeEngine, Request
+    from repro_torch.serving.paged import blocks_for
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    L = cfg.n_layers
+    B, max_seq, T, C, n = 8, 1024, 16, 64, 16
+    eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
+                       config=BestEffortConfig(
+                           level=OptLevel.O6, paged_attn="kernel",
+                           kv_block_size=T, kv_pool_blocks=pool_blocks,
+                           prefill_chunk=C))
+    shape = dict(n_requests=n, seed=7, vocab=cfg.vocab,
+                 prompt_len=(16, 257), max_new=(16, 33))
+    fixed = [(t.prompt, t.max_new_tokens) for t in make_trace(rate=1.0,
+                                                              **shape)]
+    reset_launches()
+    closed = serve_counted(eng, fixed)
+    closed["launches"] = read_launches()
+    closed["body_launches"] = paged_bodies("5s closed loop")
+    drain_rps = n / closed["wall_s"]
+    want = {tuple(p): g for (p, _), g in zip(fixed, closed["generated"])}
+    log(f"[5s] closed loop on {card}: {n} requests (prompts "
+        f"{sorted(len(p) for p, _ in fixed)}), {closed['tokens']} tokens in "
+        f"{closed['ticks']} ticks / {closed['wall_s']:.3f} s = "
+        f"{closed['tok_per_s']:.1f} tok/s ({closed['ms_per_tick']:.2f} "
+        f"ms/tick): drain rate {drain_rps:.4f} req/s; launches B1 "
+        f"{closed['launches']['paged_attention']}, B2 "
+        f"{closed['launches']['paged_prefill_attention']}")
+    rows = {}
+    for pattern, factor in (("poisson", 0.5), ("poisson", 2.0),
+                            ("bursty", 1.0)):
+        tag = f"{pattern} {factor:g}x"
+        trace = make_trace(rate=factor * drain_rps, pattern=pattern,
+                           **shape)
+        drawn = [(t.prompt, t.max_new_tokens) for t in trace]
+        if pattern == "poisson" and drawn != fixed:
+            raise AssertionError("5s: a poisson trace drew other requests "
+                                 "than the fixed set")
+        trace = [dataclasses.replace(t, prompt=list(p), max_new_tokens=m)
+                 for t, (p, m) in zip(trace, fixed)]
+        reset_launches()
+        res = serve_trace(eng, trace)
+        launches = read_launches()
+        bodies = paged_bodies(f"5s {tag}")
+        fin = res["finished"]
+        if len(fin) != n or any(r.truncated or
+                                len(r.generated) != r.max_new_tokens
+                                for r in fin):
+            raise AssertionError(f"5s {tag}: not every request finished")
+        got = {tuple(r.prompt): r.generated for r in fin}
+        if got != want:
+            raise AssertionError(f"5s {tag}: tokens differ from the "
+                                 f"closed-loop run's")
+        if not (launches["paged_attention"]
+                and launches["paged_prefill_attention"]):
+            raise AssertionError(f"5s {tag}: launches {launches}")
+        m = latency_metrics(fin, makespan_s=res["makespan_s"])
+        m.update(pattern=pattern, factor=factor,
+                 rate_rps=factor * drain_rps, ticks=res["ticks"],
+                 span_s=trace[-1].at_s,
+                 launches={k: launches[k] for k in (
+                     "paged_attention", "paged_prefill_attention")},
+                 body_launches=bodies)
+        rows[tag] = m
+        log(_trace_line(f"[5s] {tag} ({m['rate_rps']:.4f} req/s offered "
+                        f"over {m['span_s']:.2f} s)", m, card)
+            + f"; launches B1 {launches['paged_attention']}, B2 "
+            f"{launches['paged_prefill_attention']}, all split")
+
+    # prefill -> insert of one long prompt while 7 others decode, then
+    # generate; against submitting it at the same tick.
+    rng = np.random.default_rng(11)
+    long_req = (rng.integers(1, cfg.vocab, 720).tolist(), 16)
+    others = [(rng.integers(1, cfg.vocab, int(rng.integers(16, 41))
+                            ).tolist(), 16) for _ in range(7)]
+    need = sum(blocks_for(len(p) + m, T) for p, m in others + [long_req])
+    if need > pool_blocks:
+        raise AssertionError(f"5s: the insert run needs {need} blocks of "
+                             f"{pool_blocks}")
+
+    def with_long(insert: bool) -> dict:
+        rids = [eng.submit(Request(prompt=list(p), max_new_tokens=m))
+                for p, m in others]
+        for _ in range(len(others) + 2):        # all 7 chunked, decoding
+            eng.step()
+        decoding = sum(s.active and s.pos >= s.req.n_prompt
+                       for s in eng.slots)
+        reset_launches()
+        t0 = time.perf_counter()
+        if insert:
+            # prefill reads its first token back to the host, so the
+            # clock stops after the device finished.
+            res = eng.prefill(long_req[0], max_new_tokens=long_req[1])
+            t_prefill = time.perf_counter() - t0
+            eng.insert(res)
+            rid, first = res.request.rid, res.first_token
+        else:
+            rid = eng.submit(Request(prompt=list(long_req[0]),
+                                     max_new_tokens=long_req[1]))
+            t_prefill, first = None, None
+        fin = {r.rid: r.generated for r in eng.generate()}
+        return {"decoding_at_insert": decoding, "rid": rid,
+                "first_token": first, "prefill_s": t_prefill,
+                "wall_s": time.perf_counter() - t0,
+                "launches": read_launches(),
+                "body_launches": paged_bodies(
+                    "5s insert" if insert else "5s submit"),
+                "long": fin[rid], "others": [fin[r] for r in rids]}
+
+    ins, sub = with_long(True), with_long(False)
+    if ins["decoding_at_insert"] != 7:
+        raise AssertionError(f"5s: {ins['decoding_at_insert']} requests "
+                             f"decoding at the insert, want 7")
+    if (ins["long"], ins["others"]) != (sub["long"], sub["others"]) or \
+            ins["first_token"] != sub["long"][0]:
+        raise AssertionError(f"5s: prefill->insert->generate tokens "
+                             f"{ins['long']} != submitted {sub['long']}")
+    chunks = -(-len(long_req[0]) // C)
+    if ins["launches"]["paged_prefill_attention"] != L * chunks:
+        raise AssertionError(f"5s: the prefill launched B2 "
+                             f"{ins['launches']['paged_prefill_attention']} "
+                             f"times, want {L} x {chunks} chunks")
+    log(f"[5s] prefill -> insert of a {len(long_req[0])}-token prompt while "
+        f"7 decode, then generate, on {card}: prefill "
+        f"{ins['prefill_s'] * 1e3:.1f} ms ({chunks} chunks, B2 launches "
+        f"{ins['launches']['paged_prefill_attention']} = {L} x {chunks}); "
+        f"its {len(ins['long'])} tokens and the others' identical to "
+        f"submitting it")
+    for key in ("long", "others"):
+        ins.pop(key)
+        sub.pop(key)
+    closed.pop("generated")
+    wall = time.perf_counter() - t_phase
+    log(f"[5s] done in {wall:.1f} s")
+    return {"card": card, "batch": B, "max_seq": max_seq, "block": T,
+            "chunk": C, "pool_blocks": pool_blocks, "closed": closed,
+            "drain_rps": drain_rps, "traces": rows,
+            "insert": {"inserted": ins, "submitted": sub,
+                       "prompt": len(long_req[0]), "chunks": chunks},
+            "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -3364,6 +3750,80 @@ def phase_paper_ladder() -> dict:
             "fig4": rows, "o2_to_o3": split, "machsuite_gemm": machsuite}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the autotuner's measured serving walk
+# ---------------------------------------------------------------------------
+
+def phase_serving_walk(card: str) -> dict:
+    """Phase 10: ``python -m repro_torch.autotune --serve --arch
+    qwen3-8b`` in this process at the reference's defaults (smoke width,
+    batch 4, max_seq 48, 12 requests, 8 new tokens, 3 repeats, O0 -> O7
+    with the paged-attention, prefill-chunk, draft-K and pool-dtype races
+    on wall clock).  Each round's level, wall, tok/s and the races'
+    walls are logged; the tokens must be identical across every bf16
+    rung the walk kept, and the paged-attention race must have run B1
+    (its kernel engine runs the workload whichever wins), all on the
+    split body."""
+    from repro_torch.autotune.__main__ import main as autotune_main
+    from repro_torch.autotune.trajectory import (read_trajectory,
+                                                 trajectory_path)
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "autotune"
+    reset_launches()
+    rc = autotune_main(["--serve", "--arch", "qwen3-8b", "--out",
+                        str(out_dir)])
+    launches = read_launches()
+    bodies = paged_bodies("10 serving walk")
+    no_training_kernels("10 serving walk")
+    if rc != 0:
+        raise AssertionError(f"10: the serving walk returned {rc}: tokens "
+                             f"differ across its rungs")
+    recs = read_trajectory(trajectory_path("serve/qwen3-8b", str(out_dir)))
+    metas = [r["measurement"]["meta"] for r in recs]
+    if [m["level"] for m in metas] != list(range(8)):
+        raise AssertionError(f"10: walked {[m['level'] for m in metas]}")
+    base = metas[0]["generated"]
+    kept_bf16 = [m["level"] for m in metas if m["kv_dtype"] == "bf16"]
+    if any(m["generated"] != base for m in metas
+           if m["kv_dtype"] == "bf16"):
+        raise AssertionError("10: tokens differ across the kept bf16 rungs")
+    if not launches["paged_attention"]:
+        raise AssertionError(f"10: the paged_attn race never launched B1: "
+                             f"{launches}")
+    rounds = []
+    for rec, m in zip(recs, metas):
+        row = {k: m.get(k) for k in (
+            "level", "tok_per_s", "ticks", "layout", "paged_attn",
+            "prefill_chunk", "kv_dtype", "ttft_s", "itl_s", "kv_capacity",
+            "draft_k", "accept_rate", "paged_attn_walls",
+            "prefill_chunk_walls", "draft_k_walls", "kv_dtype_walls")}
+        row["wall_s"] = rec["measurement"]["compute_s"]
+        rounds.append(row)
+        races = "; ".join(
+            f"{k[:-6]} " + ", ".join(f"{a}: {b:.4f} s" for a, b in
+                                     m[k].items())
+            for k in ("paged_attn_walls", "prefill_chunk_walls",
+                      "draft_k_walls", "kv_dtype_walls") if m.get(k))
+        log(f"[walk] O{m['level']} on {card}: wall {row['wall_s']:.4f} s, "
+            f"{m['tok_per_s']:.1f} tok/s, {m['ticks']} ticks, layout "
+            f"{m['layout']}"
+            + (f", kept paged_attn {m['paged_attn']!r}, chunk "
+               f"{m['prefill_chunk']}, kv {m['kv_dtype']}"
+               if m["level"] >= 6 else "")
+            + (f", K={m.get('draft_k')}" if m["level"] == 7 else "")
+            + (f"; races: {races}" if races else ""))
+    wall = time.perf_counter() - t_phase
+    log(f"[walk] tokens identical across the kept bf16 rungs "
+        f"{kept_bf16}; launches B1 {launches['paged_attention']}, B2 "
+        f"{launches['paged_prefill_attention']}, all split; done in "
+        f"{wall:.1f} s")
+    return {"card": card, "rounds": rounds, "kept_bf16": kept_bf16,
+            "launches": {k: launches[k] for k in (
+                "paged_attention", "paged_prefill_attention")},
+            "body_launches": bodies, "wall_s": wall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3404,29 +3864,44 @@ def main() -> int:
                                        "spill")):
                 log(f"[build] {Path(path).name}: {line.strip()}")
 
-    b1, b1_main = phase_kernel()
-    b2 = phase_prefill_kernel(b1_main)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        log(f"[wall] phase {name}: {walls[name]:.1f} s")
+        return out
+
+    b1, b1_main = timed("3", phase_kernel)
+    b2 = timed("3b", phase_prefill_kernel, b1_main)
     del b1_main
-    b1q, b2q = phase_quant_kernel()
-    b3 = phase_flash_kernel()
-    b3["widths"] = phase_flash_widths()
-    b4 = phase_wkv_kernel()
-    b5 = phase_ssd_kernel()
-    b6, b7 = phase_matmul_kernel()
-    ladder = phase_ladder()
-    full = phase_full(card)
+    b1q, b2q = timed("3g", phase_quant_kernel)
+    b3 = timed("3c", phase_flash_kernel)
+    b3["widths"] = timed("3c widths", phase_flash_widths)
+    b4 = timed("3d", phase_wkv_kernel)
+    b5 = timed("3e", phase_ssd_kernel)
+    b6, b7 = timed("3f", phase_matmul_kernel)
+    ladder = timed("4", phase_ladder)
+    full = timed("5", phase_full, card)
     torch.cuda.empty_cache()
-    trained = phase_train()
-    smoke_trained = phase_smoke_train()
-    rwkv = phase_rwkv_train()
-    mamba = phase_mamba_train()
+    trained = timed("6", phase_train)
+    smoke_trained = timed("6b", phase_smoke_train)
+    rwkv = timed("7", phase_rwkv_train)
+    mamba = timed("8", phase_mamba_train)
     torch.cuda.empty_cache()
-    paper = phase_paper_ladder()
+    paper = timed("9", phase_paper_ladder)
+    walk = timed("10", phase_serving_walk, card)
     # Launches on the main path: B1 in run (b), B2 in run (d); each
     # run's counts beside them.
     runs = {"b": {"paged_attention": full["kernel_launches"],
                   "paged_prefill_attention": full["b2_launches"]},
-            "d": full["chunked"]["launches"], "e": full["spec"]["launches"]}
+            "d": full["chunked"]["launches"], "e": full["spec"]["launches"],
+            "5s closed": full["server"]["closed"]["launches"],
+            **{f"5s {tag}": row["launches"]
+               for tag, row in full["server"]["traces"].items()},
+            "5s insert": full["server"]["insert"]["inserted"]["launches"],
+            "10 walk": walk["launches"]}
     for k in (b1, b2):
         k["launches_by_run"] = {run: n[k["name"]] for run, n in runs.items()}
     b1["launches"] = runs["b"]["paged_attention"]
@@ -3472,6 +3947,7 @@ def main() -> int:
     result = {"card": card, "kernels": kerns, "ladder": ladder,
               "full": full, "train": trained, "smoke_train": smoke_trained,
               "train_rwkv": rwkv, "train_mamba": mamba, "paper": paper,
+              "walk": walk, "walls": walls,
               "seconds": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -7,7 +7,7 @@ that loop: given a measurement backend (``autotune.measurement``), it walks
 the candidate space until the guideline says stop, the comm-bound filter
 rejects the kernel, or no candidate improves the modeled time.
 
-Two exploration modes:
+Three exploration modes:
 
   * greedy (default) — exactly the paper: one guideline-recommended step per
     round.  Deterministic, minimal measurements.
@@ -18,9 +18,9 @@ Two exploration modes:
     degrades to a measured one-level-at-a-time walk that stops as soon as
     a level fails to improve.  The guideline still provides the stop
     condition and the diagnosis that is logged.
-
-The reference's third mode, the full-ladder walk of its serving engine,
-comes with ``ServingBackend`` (ROADMAP A20).
+  * ladder (the serving walk, ``ServingBackend``) — one minimal move at a
+    time up the backend's cumulative ladder, measuring every rung to the
+    top: a non-improving rung does not end the walk.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ class TuneRound:
 @dataclasses.dataclass
 class TuneResult:
     target: str
-    mode: str                    # greedy | frontier
+    mode: str                    # greedy | frontier | ladder
     rounds: list                 # [TuneRound]
     rejected: bool               # comm-bound filter fired (paper Table 5)
 
@@ -103,7 +103,7 @@ def _diagnose(backend, state, m: Measurement) -> Recommendation:
     )
 
 
-def autotune(backend, *, frontier: bool = False,
+def autotune(backend, *, frontier: bool = False, ladder: bool = False,
              max_rounds: int = 12) -> TuneResult:
     """Run the closed loop to completion.
 
@@ -111,6 +111,12 @@ def autotune(backend, *, frontier: bool = False,
     when ``max_rounds`` is exhausted, or — in frontier mode — when no
     remaining candidate improves ``total_s`` (AutoDSE's bottleneck-guided
     pruning: exploring past a non-improving frontier is wasted synthesis).
+
+    ``ladder=True`` walks the backend's cumulative ladder one minimal move
+    at a time, measuring *every* rung to the top — the paper's full-walk
+    mode (Fig. 12's bar groups): the guideline's diagnosis is still logged
+    per round, but a non-improving rung does not end the walk, so the
+    result is the complete measurement curve, ties included.
     """
     state = backend.initial_state()
     m = backend.measure(state)
@@ -135,7 +141,15 @@ def autotune(backend, *, frontier: bool = False,
             rejected = rec.stop and "communication-bound" in rec.reason
             break
 
-        if frontier:
+        if ladder:
+            cands = backend.candidate_steps(state)
+            if not cands:
+                round_.stop = True
+                break
+            step = cands[0]
+            state = backend.apply(state, step)
+            m = backend.measure(state)
+        elif frontier:
             cands = []
             for step in backend.candidate_steps(state):
                 cand_state = backend.apply(state, step)
@@ -170,7 +184,7 @@ def autotune(backend, *, frontier: bool = False,
 
     return TuneResult(
         target=backend.name,
-        mode="frontier" if frontier else "greedy",
+        mode=("ladder" if ladder else "frontier" if frontier else "greedy"),
         rounds=rounds,
         rejected=rejected,
     )

@@ -12,9 +12,8 @@ reference's:
   O2  +pipelining       O6  +paged scratchpad (KV blocks + tables)
   O3  +PE duplication   O7  +speculative decoding
 
-The port serves O2 and up on one device (O3 records its degree clipped
-to that device); the engine raises ``NotImplementedError`` for O0/O1
-(see ROADMAP A5).
+The port serves every level on one device (O3 records its degree
+clipped to that device; O0/O1 run the un-pipelined per-request loop).
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ on the CPU (the kernel path then uses the kernels' plain versions).
 target's vocab at the scale served, so the pair works with ``--smoke``
 only); ``--level 6 --kv-dtype int8`` (or ``fp8``) stores the paged pool
 in 1-byte words with one f32 scale per (block row, kv head), half the
-bytes a token.  The rungs outside the port (O0/O1) raise
-``NotImplementedError``.
+bytes a token.  ``--level 0`` / ``1`` serve the un-pipelined loop, one
+batch-1 model call per request per tick (O0 also rebuilds the cache at
+each admission).  ``launch.server`` puts an async open-loop front end
+over the same engine.
 """
 
 from __future__ import annotations
@@ -122,9 +124,10 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--level", type=int, default=5, choices=range(8),
-                    help="OptLevel to build the engine at (the port serves "
-                         "2-7; 6 = paged KV blocks, 7 = speculative "
-                         "decoding — needs --draft)")
+                    help="OptLevel to build the engine at: 0-1 the "
+                         "un-pipelined per-request loop, 2-5 batched, 6 = "
+                         "paged KV blocks, 7 = speculative decoding — "
+                         "needs --draft")
     ap.add_argument("--policy", default="fcfs",
                     choices=("fcfs", "spf", "deadline"))
     ap.add_argument("--sampler", default="greedy",
@@ -198,7 +201,7 @@ def main(argv=None):
           f"[{out['layout']}{attn} on {out['device']}]: "
           f"{len(out['finished'])} requests, {out['tokens']} new "
           f"tokens in {out['ticks']} ticks / {out['wall_s']:.2f}s "
-          f"({out['tok_per_s']:.1f} tok/s batched)")
+          f"({out['tok_per_s']:.1f} tok/s)")
     if args.expect_devices and out["devices"] != args.expect_devices:
         raise SystemExit(
             f"placement landed on {out['devices']} device(s), expected "

@@ -1,12 +1,20 @@
 """Slot-based continuous-batching decode engine, built at an OptLevel
 (port of ``repro/serving/engine.py``).
 
-The rungs this slice serves, each a real, independently toggleable stage
-keyed by ``BestEffortConfig.level``:
+The rungs, each a real, independently toggleable stage keyed by
+``BestEffortConfig.level``:
 
+  O1 data caching      — persistent device-resident cache with in-place
+                         per-slot resets (``cache.CacheManager``); O0
+                         rebuilds the cache at every admission.
   O2 pipelining        — continuous batching: every active slot decodes in
                          ONE fused step with sampling on the device, so
-                         only the (B,) sampled ids come back per tick.
+                         only the (B,) sampled ids come back per tick;
+                         O0/O1 run the un-pipelined loop — one batch-1
+                         model call per request per tick, sampling off the
+                         device step (greedy: numpy ``argmax`` over the
+                         request's logits copied to the host; stochastic:
+                         the sampler as a device call of its own).
   O3 PE duplication    — recorded only: the port runs on one device, so
                          ``pe`` is clipped to 1 (``engine.placement``).
   O4 double buffering  — host prestages next tick's token/position
@@ -51,11 +59,16 @@ Prefill has two implementations:
     fed their real next prompt token, whose write a later chunk
     rewrites, but advanced only by chunks).  TTFT drops to
     ``ceil(prompt_len / chunk)`` ticks.  ``prefill_mode`` records which
-    one runs ("chunked" / "token"); greedy tokens are the same.
+    one runs ("chunked" / "token"); greedy tokens are the same.  The
+    un-pipelined O0/O1 loop always feeds prompts a token per tick.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
-the un-pipelined O0/O1 per-request loop and the prefill / insert /
-generate API (A5).
+The phases are also exposed directly (the JetStream-style serving API):
+``prefill(prompt)`` consumes a prompt on a standalone batch-1 cache of
+the engine's layout (a private pool on the paged layout) through the
+prefill step admission runs and samples the first token,
+``insert(result)`` installs that state into a free slot (scattering it
+through a freshly reserved block table under the paged layout), and
+``generate()`` drains the decode loop.
 
 Admission, slot bookkeeping and retirement live in ``scheduler``; the
 engine is only the tick loop that wires scheduler, cache manager, sampler
@@ -90,6 +103,18 @@ class TickBudgetExceeded(RuntimeError):
         self.survivors = survivors
 
 
+@dataclasses.dataclass
+class PrefillResult:
+    """Output of the standalone PREFILL phase — everything INSERT needs:
+    the request (rid already assigned, so stochastic seeds are stable),
+    the first sampled token, and the batch-1 dense cache holding the
+    prompt's K/V (zero past the prompt)."""
+    request: Request
+    first_token: int
+    kv_state: object
+    length: int          # prompt tokens consumed
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where the engine's arrays live.  The port serves on one device:
@@ -107,10 +132,6 @@ class DecodeEngine:
                  policy: str = "fcfs", draft_model=None, draft_params=None):
         self.config = config or BestEffortConfig(level=OptLevel.O5)
         self.level = self.config.level
-        if not self.level.has(Step.PIPELINING):
-            raise NotImplementedError(
-                f"O{int(self.level)}: the un-pipelined per-request loop "
-                f"(O0/O1) is not ported yet (ROADMAP A5)")
         emb = params["embedding"]
         if emb.device != model.device:
             raise ValueError(f"params on {emb.device}, model on "
@@ -130,8 +151,17 @@ class DecodeEngine:
         self.cache_mgr = self.layout.build_manager(
             model, batch_size, max_seq, self.config)
         self.layout.wire_scheduler(self.scheduler, self.cache_mgr)
-        self._step_fn = self.layout.make_step(model, self.sampler_cfg,
-                                              self.cache_mgr)
+        self._fused = self.level.has(Step.PIPELINING)
+        if self._fused:
+            self._step_fn = self.layout.make_step(model, self.sampler_cfg,
+                                                  self.cache_mgr)
+        else:
+            # O0/O1: the un-pipelined loop — each active request runs its
+            # OWN batch-1 model call per tick (every request pays a pass
+            # over the weights), and sampling runs off the device step.
+            shared = shared_steps(model, self.sampler_cfg)
+            self._single_fn = shared["single"]
+            self._sample_fn = shared["sample"]
 
         # O4: host/device overlap via rotating prestaged buffers plus the
         # split-tick protocol (dispatch -> bookkeeping under the running
@@ -142,11 +172,11 @@ class DecodeEngine:
         self._pending = None        # (toks_device, emissions) of last tick
 
         # Chunked prefill: a single-slot multi-token chunk step, or None
-        # (the model cannot chunk) — the tick loop then feeds prompts one
-        # token per tick.
+        # (the model cannot chunk, or the un-pipelined loop) — the tick
+        # loop then feeds prompts one token per tick.
         self._prefill_chunk = int(self.config.prefill_chunk)
         self._prefill_fn = None
-        if self._prefill_chunk > 0:
+        if self._prefill_chunk > 0 and self._fused:
             self._prefill_fn = self.layout.make_prefill_step(
                 model, self.sampler_cfg, self.cache_mgr)
         self.prefill_mode = ("chunked" if self._prefill_fn is not None
@@ -259,6 +289,94 @@ class DecodeEngine:
 
     def submit(self, req: Request) -> int:
         return self.scheduler.submit(req)
+
+    # -- prefill -> insert -> generate ---------------------------------------
+    def prefill(self, prompt, *, max_new_tokens: int = 16,
+                eos_id: Optional[int] = None) -> PrefillResult:
+        """PREFILL phase: consume ``prompt`` on a standalone batch-1 cache
+        of the engine's own layout, in chunks of the engine's
+        ``prefill_chunk`` (else ``min(len(prompt), 64)``) through the
+        layout's prefill step (on the paged kernel layout a private pool
+        and B2), and sample the first generated token.  No engine slot is
+        touched: :meth:`insert` installs the returned state and
+        :meth:`generate` decodes from there, with the tokens of
+        submitting the same request.  The state is a batch-1 dense cache
+        zeroed past the prompt (a padded final chunk writes its pad rows
+        there), so a narrow pool's insert quantizes the prompt alone."""
+        if self.model.prefill_step is None:
+            raise NotImplementedError(
+                f"prefill of the {self.model.cfg.family!r} family is not "
+                f"ported (ROADMAP A11)")
+        req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
+                      eos_id=eos_id)
+        req.rid = self.scheduler.new_rid()
+        if req.n_prompt < 1:
+            raise ValueError(f"req {req.rid}: empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"req {req.rid}: prefill needs max_new_tokens >= 1")
+        if req.n_prompt + req.max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"req {req.rid}: prompt ({req.n_prompt}) + max_new_tokens "
+                f"({req.max_new_tokens}) exceeds engine max_seq "
+                f"({self.max_seq})")
+        cfg = self.sampler_cfg
+        P = req.n_prompt
+        seed = cfg.request_seed(req.rid, 0) if cfg.stochastic else 0
+        cache, step, dense = self.layout.make_solo_prefill(
+            self.model, cfg, self.max_seq, self.config)
+        C = self._prefill_chunk or min(P, 64)
+        for pos in range(0, P, C):
+            n = min(C, P - pos)
+            toks = np.full((1, C), self.pad_id, np.int32)
+            toks[0, :n] = req.prompt[pos:pos + n]
+            tok_dev, cache = step(
+                self.params, cache, self._host_to_device(toks),
+                self._host_to_device([pos]),
+                self._host_to_device([n - 1]), [seed])
+        state = dense(cache)
+        for name, ax in self.model.cache_axes().items():
+            state[name].narrow(ax.index("kv_seq"), P,
+                               self.max_seq - P).zero_()
+        return PrefillResult(request=req, first_token=int(tok_dev),
+                             kv_state=state, length=P)
+
+    def insert(self, result: PrefillResult,
+               slot: Optional[int] = None) -> int:
+        """INSERT phase: occupy a free slot with a prefilled request.
+        Copies the batch-1 state over the slot's cache slice (contiguous)
+        or scatters it through the slot's freshly reserved block table
+        (paged), places the scheduler slot after the prompt and records
+        the first token — after which the request decodes like any
+        other.  Raises when no slot is free or (paged) the pool cannot
+        hold the request's reservation right now; callers retry after
+        retirements."""
+        sched = self.scheduler
+        req = result.request
+        if slot is None:
+            free = [i for i, s in enumerate(sched.slots) if not s.active]
+            if not free:
+                raise ValueError("no free slot to insert into")
+            slot = free[0]
+        if sched.submit_gate is not None:
+            reason = sched.submit_gate(req)
+            if reason:
+                # Never fits: no retirement will ever make room.
+                raise ValueError(f"req {req.rid}: {reason}")
+        if (sched.admission_gate is not None
+                and not sched.admission_gate(req)):
+            raise ValueError(
+                "insufficient free KV blocks to insert (retire requests "
+                "or enlarge the pool)")
+        sched.place(req, slot)          # fires on_admit (block reserve)
+        self.cache_mgr.insert_slot(slot, result.kv_state)
+        sched.advance(slot, result.first_token)
+        return slot
+
+    def generate(self, *, max_ticks: int = 10_000) -> list:
+        """GENERATE phase: drain inserted and queued requests — :meth:`run`
+        under the name of the prefill -> insert -> generate protocol."""
+        return self.run(max_ticks=max_ticks)
 
     def step(self) -> bool:
         """One engine tick: admit, run the batched decode step, retire."""
@@ -505,7 +623,9 @@ class DecodeEngine:
         return True
 
     def _step_serial(self) -> bool:
-        """O2/O3: admit -> fill -> dispatch -> wait -> retire, in order."""
+        """O0..O3: admit -> fill -> dispatch -> wait -> retire, in order.
+        Below O2 each active request runs its own batch-1 model call, one
+        after another — the per-request loop a batched tick replaces."""
         sched = self.scheduler
         admitted = sched.admit()
         active = sched.active_indices
@@ -515,6 +635,25 @@ class DecodeEngine:
 
         cfg = self.sampler_cfg
         slots = sched.slots
+        if not self._fused:
+            # O0/O1: one model call per request; greedy takes numpy's
+            # argmax (the first index on ties, like torch.argmax) over
+            # the logits copied to the host.
+            toks = {}
+            for i in active:
+                s = slots[i]
+                logits, self.cache_mgr.cache = self._single_fn(
+                    self.params, self.cache_mgr.cache, s.next_token(),
+                    s.pos, i)
+                if cfg.stochastic:
+                    seed = cfg.request_seed(s.req.rid, len(s.req.generated))
+                    toks[i] = int(self._sample_fn(logits[None], [seed])[0])
+                else:
+                    toks[i] = int(logits.cpu().numpy().argmax())
+            self.n_steps += 1
+            for i in active:
+                sched.advance(i, toks[i])
+            return True
         # Chunked prefill: one prompt chunk (head of the prefill queue)
         # dispatches before the batched step; slots still consuming
         # their prompt are PARKED in that step — fed their real next

@@ -5,7 +5,7 @@ The engine selects one strategy object and never branches on layout
 again:
 
   * :class:`ContiguousLayout` — one ``batch x max_seq`` cache slice per
-    slot (rungs O2..O5);
+    slot (rungs O0..O5);
   * :class:`PagedLayout` — a pooled KV-block scratchpad with per-request
     block tables (O6).  ``paged_attn="gather"`` re-materializes each
     slot's dense view from the pool every tick, runs the SAME dense
@@ -38,9 +38,13 @@ dtype's tolerance contract against the O5 tokens
 
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 from repro_torch.serving import kvquant
 from repro_torch.serving.cache import CacheManager
-from repro_torch.serving.paged import PagedCacheManager
+from repro_torch.serving.paged import PagedCacheManager, split_cache
 from repro_torch.serving.sampler import make_sampler
 
 
@@ -58,6 +62,11 @@ def shared_steps(model, sampler_cfg) -> dict:
     """The contiguous layout's steps for ``model`` (the drafter's too):
 
     * ``fused`` — batched decode + sample (:func:`make_fused`);
+    * ``single`` — one request's decode step, the un-pipelined O0/O1
+      loop: ``(params, cache, token, position, islot) -> (logits (V,),
+      cache)`` runs a batch-1 ``decode_step`` on slot ``islot``'s rows of
+      the cache in place and returns that request's last logits, so each
+      request pays its own pass over the weights;
     * ``prefill`` — one slot's prefill CHUNK: ``(params, cache, islot,
       tokens (1, C), start (1,), last (1,), seeds) -> (token, cache)``,
       run on slot ``islot``'s rows of the cache in place and sampled at
@@ -70,31 +79,37 @@ def shared_steps(model, sampler_cfg) -> dict:
       over every slot's pending token + drafts, the greedy token at every
       row.  Built only for greedy samplers (the engine gates speculation
       on determinism), where ``sample`` reduces over the last axis row by
-      row."""
+      row;
+    * ``sample`` — the sampler alone, ``(logits (B, V), seeds) -> tokens
+      (B,)``: at O0/O1 a stochastic kind samples each request's logits in
+      a device call of its own."""
     sample = make_sampler(sampler_cfg)
     batch_axis = {name: ax.index("batch")
                   for name, ax in model.cache_axes().items()}
 
+    def _row(cache, islot):
+        """Slot ``islot``'s rows of every leaf, as views: in place."""
+        return {name: leaf.narrow(batch_axis[name], islot, 1)
+                for name, leaf in cache.items()}
+
+    def _single(params, cache, token, position, islot):
+        dev = model.device
+        logits, _ = model.decode_step(params, _row(cache, islot),
+                                      torch.tensor([[token]], device=dev),
+                                      torch.tensor([position], device=dev))
+        return logits[0], cache
+
     def _prefill(params, cache, islot, tokens, start, last, seeds):
-        row = {name: leaf.narrow(batch_axis[name], islot, 1)
-               for name, leaf in cache.items()}       # views: in place
-        logits, _ = model.prefill_step(params, row, tokens, start, last)
+        logits, _ = model.prefill_step(params, _row(cache, islot), tokens,
+                                       start, last)
         return sample(logits, seeds)[0], cache
 
     def _verify(params, cache, tokens, start):
         logits, cache = model.verify_step(params, cache, tokens, start)
         return sample(logits, None), cache
 
-    return {"fused": make_fused(model, sample), "prefill": _prefill,
-            "verify": _verify}
-
-
-def _split_cache(cache, quantized):
-    """(pool, scales) from a paged step's cache: a narrow pool travels as
-    a ``{"pool", "scale"}`` bundle, a wide one bare (scales None)."""
-    if quantized:
-        return cache["pool"], cache["scale"]
-    return cache, None
+    return {"fused": make_fused(model, sample), "single": _single,
+            "prefill": _prefill, "verify": _verify, "sample": sample}
 
 
 def make_paged_fused(model, sample, manager):
@@ -107,7 +122,7 @@ def make_paged_fused(model, sample, manager):
     plan = manager.plan
 
     def _fused(params, cache, tables, tokens, positions, seeds):
-        pool, scales = _split_cache(cache, plan.quantized)
+        pool, scales = split_cache(cache, plan.quantized)
         dense = plan.gather(pool, tables, scales)
         logits, dense = model.decode_step(params, dense, tokens, positions)
         toks = sample(logits, seeds)
@@ -126,7 +141,7 @@ def make_paged_kernel_fused(model, sample, manager):
     quantized, kv_dtype = manager.plan.quantized, manager.kv_dtype
 
     def _fused(params, cache, tables, tokens, positions, seeds):
-        pool, scales = _split_cache(cache, quantized)
+        pool, scales = split_cache(cache, quantized)
         logits = model.paged_decode_step(params, pool, tables, tokens,
                                          positions, scales=scales,
                                          kv_dtype=kv_dtype)[0]
@@ -155,6 +170,14 @@ class KVLayout:
                          tokens (B, C), cache)``, or None when the model
                          has no verify step (the engine then decodes
                          plainly).
+    ``make_solo_prefill`` — a standalone batch-1 cache of this layout and
+                         the layout's own prefill-chunk step on it, for
+                         ``DecodeEngine.prefill``: ``(cache, step, dense)``
+                         with ``step(params, cache, tokens (1, C), start
+                         (1,), last (1,), seeds) -> (token, cache)`` and
+                         ``dense(cache)`` the state as a batch-1 dense
+                         cache, so a prefilled request's state and first
+                         token are those its admission would compute.
     ``attn_impl``      — the attention implementation the built steps use
                          ("gather"/"kernel"; None on the contiguous layout).
     """
@@ -173,7 +196,7 @@ class KVLayout:
 
 
 class ContiguousLayout(KVLayout):
-    """One ``batch x max_seq`` cache slice per slot (rungs O2..O5)."""
+    """One ``batch x max_seq`` cache slice per slot (rungs O0..O5)."""
 
     name = "contiguous"
 
@@ -192,6 +215,12 @@ class ContiguousLayout(KVLayout):
         if model.verify_step is None:
             return None
         return shared_steps(model, sampler_cfg)["verify"]
+
+    def make_solo_prefill(self, model, sampler_cfg, max_seq, config):
+        step = shared_steps(model, sampler_cfg)["prefill"]
+        return (model.init_cache(1, max_seq),
+                lambda params, cache, *args: step(params, cache, 0, *args),
+                lambda cache: cache)
 
 
 class PagedLayout(KVLayout):
@@ -253,7 +282,7 @@ class PagedLayout(KVLayout):
         if self.attn_impl == "kernel":
             def _prefill(params, cache, tables, islot, tokens, start, last,
                          seeds):
-                pool, scales = _split_cache(cache, plan.quantized)
+                pool, scales = split_cache(cache, plan.quantized)
                 logits = model.paged_prefill_step(
                     params, pool, tables[islot:islot + 1], tokens, start,
                     last, scales=scales, kv_dtype=kv_dtype)[0]
@@ -264,7 +293,7 @@ class PagedLayout(KVLayout):
 
         def _prefill(params, cache, tables, islot, tokens, start, last,
                      seeds):
-            pool, scales = _split_cache(cache, plan.quantized)
+            pool, scales = split_cache(cache, plan.quantized)
             row = tables[islot:islot + 1]
             token, dense = dense_prefill(
                 params, plan.gather(pool, row, scales), 0, tokens, start,
@@ -273,6 +302,27 @@ class PagedLayout(KVLayout):
                               lengths=start + tokens.shape[1])
             return token, cache
         return _prefill
+
+    def make_solo_prefill(self, model, sampler_cfg, max_seq, config):
+        """A private batch-1 pool (same block size and stored dtype, one
+        full reservation) driven by this layout's prefill step — on the
+        kernel variant B2 — read back as the dense view of its table."""
+        mgr = self.build_manager(model, 1, max_seq,
+                                 dataclasses.replace(config,
+                                                     kv_pool_blocks=0))
+        mgr.grow_slot(0, max_seq)
+        (tables,) = mgr.step_extras()
+        step = self.make_prefill_step(model, sampler_cfg, mgr)
+
+        def dense(cache):
+            pool, scales = split_cache(cache, mgr.plan.quantized)
+            view = mgr.plan.gather(pool, tables, scales)
+            return {name: leaf[:, :, :max_seq] for name, leaf in view.items()}
+
+        return (mgr.cache,
+                lambda params, cache, *args: step(params, cache, tables, 0,
+                                                  *args),
+                dense)
 
     def make_verify_step(self, model, sampler_cfg, manager):
         """The paged speculative verify: ``kernel`` runs the model's
@@ -289,7 +339,7 @@ class PagedLayout(KVLayout):
 
         if self.attn_impl == "kernel":
             def _verify(params, cache, tables, tokens, start):
-                pool, scales = _split_cache(cache, plan.quantized)
+                pool, scales = split_cache(cache, plan.quantized)
                 logits = model.paged_verify_step(
                     params, pool, tables, tokens, start, scales=scales,
                     kv_dtype=kv_dtype)[0]
@@ -299,7 +349,7 @@ class PagedLayout(KVLayout):
         dense_verify = shared_steps(model, sampler_cfg)["verify"]
 
         def _verify(params, cache, tables, tokens, start):
-            pool, scales = _split_cache(cache, plan.quantized)
+            pool, scales = split_cache(cache, plan.quantized)
             greedy, dense = dense_verify(
                 params, plan.gather(pool, tables, scales), tokens, start)
             plan.scatter_view(pool, tables, dense, scales,

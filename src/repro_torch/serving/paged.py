@@ -24,17 +24,16 @@ Layering (the allocators are pure host code, testable without a device):
     step and the whole-view scatter of the gather prefill / verify steps
     (re-quantized), geometry and bytes.
   * :class:`PagedCacheManager` — the pool + tables behind the contiguous
-    manager's engine-facing surface.
+    manager's engine-facing surface, plus the INSERT of a prefilled
+    dense state and the copy-on-admit defrag ``compact``.
 
 Token identity with the contiguous path rests on one invariant: a slot
 at position ``p`` has itself written every position ``< p`` (its blocks
 are reserved up front), position ``p`` is written before attention reads
 it, and every position ``> p`` is masked before the softmax.
 
-The recurrent-state row pool (``StatePool``/``StatePagingPlan``),
-``grow_slot`` (the reference's admission helper; here ``admit_slot``
-allocates the reservation directly) and defrag ``compact`` are not
-ported (ROADMAP A5, A11).
+The recurrent-state row pool (``StatePool``/``StatePagingPlan``) is not
+ported (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -50,6 +49,14 @@ NULL_BLOCK = 0
 def blocks_for(n_tokens: int, block_size: int) -> int:
     """Blocks needed to hold ``n_tokens`` positions."""
     return -(-max(n_tokens, 0) // block_size)
+
+
+def split_cache(cache, quantized: bool):
+    """(pool leaves, scale leaves or None) of a paged cache: a narrow pool
+    travels as a ``{"pool", "scale"}`` bundle, a wide one bare."""
+    if quantized:
+        return cache["pool"], cache["scale"]
+    return cache, None
 
 
 class BlockAllocator:
@@ -87,6 +94,12 @@ class BlockAllocator:
                 raise RuntimeError(f"double/invalid free of block {b}")
             live.add(b)
             self._free.append(b)
+
+    def rebuild(self, n_held: int) -> None:
+        """Reset to blocks ``1..n_held`` held and the rest free (the
+        compacted layout), keeping the free-list representation in this
+        class only."""
+        self._free = list(range(self.n_blocks, n_held, -1))
 
 
 class PagedAllocator:
@@ -144,10 +157,22 @@ class PagedAllocator:
         table (up-front reservation = no mid-flight exhaustion)."""
         if self._held[i]:
             raise RuntimeError(f"slot {i} admitted while holding blocks")
-        n = self.blocks_needed(req)
         self.tables[i, :] = NULL_BLOCK
-        self.tables[i, :n] = self.allocator.allocate(n)
-        self._held[i] = n
+        self.grow_slot(i, self.reserved_tokens(req))
+
+    def grow_slot(self, i: int, total_tokens: int) -> int:
+        """Grow slot ``i``'s table to cover ``total_tokens`` positions
+        (clipped to ``max_seq``), allocating exactly ``blocks_for(total) -
+        held`` new blocks: a chunk that ends mid-block shares its active
+        block with the next, so growing by totals never double-counts it.
+        Returns the number of blocks added."""
+        want = blocks_for(min(total_tokens, self.max_seq), self.block_size)
+        delta = want - self._held[i]
+        if delta <= 0:
+            return 0
+        self.tables[i, self._held[i]:want] = self.allocator.allocate(delta)
+        self._held[i] = want
+        return delta
 
     def release_slot(self, i: int, req=None) -> None:
         n = self._held[i]
@@ -160,6 +185,10 @@ class PagedAllocator:
     @property
     def free_blocks(self) -> int:
         return self.allocator.free_blocks
+
+    @property
+    def capacity_tokens(self) -> int:
+        return self.pool_blocks * self.block_size
 
     def check_conservation(self) -> None:
         """allocated + free == total, and no block is in two places."""
@@ -405,8 +434,8 @@ class PagedCacheManager(PagedAllocator):
 
     def step_extras(self) -> tuple:
         """(tables,) as a CACHED device tensor: tables only change at
-        admission / retirement, which invalidate it, so steady-state
-        decode ticks reuse one upload."""
+        admission, growth, retirement and compaction, which invalidate
+        it, so steady-state decode ticks reuse one upload."""
         if self._tables_dev is None:
             self._tables_dev = torch.from_numpy(self.tables.copy()).to(
                 self.model.device)
@@ -416,6 +445,12 @@ class PagedCacheManager(PagedAllocator):
         super().admit_slot(i, req)
         self._tables_dev = None
 
+    def grow_slot(self, i: int, total_tokens: int) -> int:
+        added = super().grow_slot(i, total_tokens)
+        if added:
+            self._tables_dev = None
+        return added
+
     def release_slot(self, i: int, req=None) -> None:
         super().release_slot(i, req)
         self._tables_dev = None
@@ -424,3 +459,62 @@ class PagedCacheManager(PagedAllocator):
         """Nothing to zero: the admitted slots' tables were rebuilt by
         ``admit_slot`` and every stale position is masked."""
         del indices, live
+
+    def insert_slot(self, i: int, state) -> None:
+        """Install an externally prefilled batch-1 DENSE cache into slot
+        ``i``'s pool blocks (the INSERT phase of prefill -> insert ->
+        generate).  Each leaf's sequence axis is padded to the table
+        horizon (nb*T), folded to (nb, T) and scattered through slot
+        ``i``'s table — ``place``/``admit_slot`` rebuilt it before this
+        runs, and NULL entries past the reservation absorb the padded
+        tail into the write-garbage NULL row.  A narrow pool quantizes
+        each folded block with a fresh absmax scale and installs the
+        scale rows beside it (``engine.prefill`` zeroes its state past
+        the prompt, so only the prompt's values set a scale)."""
+        if state.keys() != self.plan.leaf_specs.keys():
+            raise ValueError(f"prefill state leaves {sorted(state)} != "
+                             f"pool leaves {sorted(self.plan.leaf_specs)}")
+        nb, T = self.plan.nb, self.plan.T
+        row = torch.from_numpy(self.tables[i].astype(np.int64)).to(
+            self.model.device)
+        pool, scales = split_cache(self.cache, self.plan.quantized)
+        sl = dict.fromkeys(pool) if scales is None else scales
+        for name, leaf in pool.items():
+            st = state[name].select(1, 0)                 # (L, S, KV, dh)
+            pad = nb * T - st.shape[1]
+            if pad:
+                st = torch.cat([st, st.new_zeros((st.shape[0], pad)
+                                                 + st.shape[2:])], dim=1)
+            self.plan._store(leaf, sl[name], row,
+                             st.reshape((st.shape[0], nb, T) + st.shape[2:]),
+                             None)
+        self._tables_dev = None
+
+    def compact(self) -> None:
+        """Copy-on-admit defrag: relocate every held block to the lowest
+        ids, physically copying pool rows (and a narrow pool's scale
+        rows) and rewriting the tables.  Optional — block ids are fully
+        virtualized, so correctness never needs it; it keeps the live set
+        a dense prefix of the pool."""
+        held = sorted({b for row, n in zip(self.tables, self._held)
+                       for b in row[:n].tolist()})
+        moves = {old: new for new, old in enumerate(held, start=1)
+                 if old != new}
+        if not moves:
+            return
+        dev = self.model.device
+        src = torch.tensor(list(moves), dtype=torch.long, device=dev)
+        dst = torch.tensor(list(moves.values()), dtype=torch.long,
+                           device=dev)
+        pool, scales = split_cache(self.cache, self.plan.quantized)
+        leaves = list(pool.values())
+        if scales is not None:
+            leaves += list(scales.values())
+        for leaf in leaves:
+            b = kvquant.as_bytes(leaf)
+            b[:, dst] = b[:, src]         # the read is a copy: overlap-safe
+        remap = np.arange(self.pool_blocks + 1, dtype=np.int32)
+        remap[list(moves)] = list(moves.values())
+        self.tables = remap[self.tables]
+        self.allocator.rebuild(len(held))
+        self._tables_dev = None

@@ -152,8 +152,12 @@ class Scheduler:
         self.submit_gate = None
 
     # -- submission -----------------------------------------------------------
+    def new_rid(self) -> int:
+        """The next request id: the one place ids are handed out."""
+        return next(self._rid)
+
     def submit(self, req: Request) -> int:
-        req.rid = next(self._rid)
+        req.rid = self.new_rid()
         if req.arrival_s is None:
             req.arrival_s = time.monotonic()
         if req.n_prompt < 1:
@@ -270,7 +274,7 @@ class Scheduler:
         if self.slots[i].active:
             raise ValueError(f"slot {i} is occupied")
         if req.rid < 0:
-            req.rid = next(self._rid)
+            req.rid = self.new_rid()
         if req.arrival_s is None:
             req.arrival_s = time.monotonic()
         self.slots[i] = Slot(req=req, pos=req.n_prompt - 1)

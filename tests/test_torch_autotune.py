@@ -2,13 +2,17 @@
 (``core.costmodel``), the guideline, the closed-loop autotuner over
 ``KernelModelBackend`` (greedy and frontier) and its CLI give the
 reference's numbers and records exactly — they are framework-free copies
-— and the card's roofline arithmetic is the reference's formula."""
+— and the card's roofline arithmetic is the reference's formula.  The
+measured serving walk (``ServingBackend``, ``--serve``) runs on the CPU at
+tiny settings: its workload is the reference's, its rungs' tokens are
+identical, and its records carry the reference's ``meta`` keys."""
 
 import dataclasses
 import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro.autotune import KernelModelBackend as JKernelModelBackend
 from repro.autotune import autotune as jautotune
@@ -144,8 +148,7 @@ def test_cli_all_frontier_prints_every_kernel(tmp_path, capsys):
     assert sorted(p.stem for p in tmp_path.glob("*.jsonl")) == NAMES
 
 
-@pytest.mark.parametrize("argv", [["--serve", "--kernel", "gemm"],
-                                  ["--arch", "qwen3-8b"]])
+@pytest.mark.parametrize("argv", [["--arch", "qwen3-8b"]])
 def test_cli_unported_modes_raise_naming_the_roadmap(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP A20"):
         main(argv)
@@ -159,3 +162,129 @@ def test_autotuned_gemm_level_is_output_equivalent(rng):
     inp = mod.make_inputs(rng, 32 / 1024)
     out = mod.run(level, **inp, device="cpu").numpy()
     np.testing.assert_allclose(out, mod.oracle(**inp), rtol=2e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The measured serving walk (ServingBackend, --serve), on the CPU
+# ---------------------------------------------------------------------------
+
+# Every meta key the reference's ServingBackend records at a level (its
+# conditional keys by the level that carries them).
+_SERVE_META = {"backend", "level", "tok_per_s", "tokens", "ticks",
+               "batch_size", "requests", "policy", "kv_capacity", "layout",
+               "devices", "paged_attn", "state_impl", "degrade_reason",
+               "kv_dtype", "prefill_chunk", "prefill_mode", "ttft_s",
+               "itl_s", "generated"}
+_SERVE_META_PAGED = {"paged_attn_walls", "kv_dtype_walls", "kv_agreement",
+                     "prefill_chunk_walls"}
+_SERVE_META_SPEC = {"spec_mode", "draft_k", "draft_model", "accept_rate",
+                    "eff_tok_per_step", "draft_k_walls"}
+_TINY = ["--requests", "4", "--max-new", "3", "--repeats", "1"]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(max_seq=48, n_requests=12, max_new=8, seed=0),
+    dict(max_seq=20, n_requests=5, max_new=30, seed=3),
+])
+def test_serving_workload_is_the_references(kw):
+    from repro.autotune.measurement import serving_workload as jworkload
+    from repro_torch.autotune import serving_workload
+
+    assert serving_workload(256, **kw) == jworkload(256, **kw)
+    with pytest.raises(ValueError, match="max_new"):
+        serving_workload(256, max_seq=48, n_requests=2, max_new=0)
+
+
+def test_serving_smoke_config_is_the_references():
+    from repro.autotune.measurement import serving_smoke_config as jsmoke
+    from repro_torch.autotune import serving_smoke_config
+
+    for vocab in (0, 100, 32768):
+        mine, theirs = (serving_smoke_config("qwen3-8b", vocab),
+                        jsmoke("qwen3-8b", vocab))
+        assert (mine.name, mine.vocab, mine.n_layers, mine.d_model) == \
+            (theirs.name, theirs.vocab, theirs.n_layers, theirs.d_model)
+
+
+def test_serving_backend_rejects_bad_knobs():
+    from repro_torch.autotune import ServingBackend
+
+    for kw in (dict(paged_attn="flash"), dict(kv_dtype="fp4"),
+               dict(traffic_pattern="carrier-pigeon"),
+               dict(prefill_chunk=-1), dict(draft_k="many")):
+        with pytest.raises(ValueError):
+            ServingBackend(device="cpu", **kw)
+
+
+@pytest.fixture
+def one_thread():
+    """The smoke model's ops are too small for intra-op threads, which
+    only add contention beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_cli_serve_walks_the_ladder_on_the_cpu(tmp_path, capsys,
+                                               one_thread):
+    """``--serve`` walks O0..O7 in traffic mode: it returns 0 (tokens
+    identical across the kept bf16 rungs), every level's record carries
+    the reference's meta keys and the traffic row, the paged rungs'
+    races are keyed by what ran, and the port records one device."""
+    argv = ["--serve", "--arch", "qwen3-8b", "--device", "cpu", *_TINY,
+            "--traffic-rate", "200", "--out", str(tmp_path)]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "identical across levels (narrow rungs: within tolerance " \
+        "contract): True" in out
+    recs = read_trajectory(str(tmp_path / "serve__qwen3-8b.jsonl"))
+    metas = [r["measurement"]["meta"] for r in recs]
+    assert [m["level"] for m in metas] == list(range(8))
+    assert {r["mode"] for r in recs} == {"ladder"}
+    base = metas[0]["generated"]
+    assert len(base) == 4 and all(1 <= len(g) <= 3 for g in base)
+    for m in metas:
+        want = set(_SERVE_META)
+        if m["level"] >= 6:
+            want |= _SERVE_META_PAGED
+            assert set(m["paged_attn_walls"]) == {"gather", "kernel"}
+            assert set(m["kv_dtype_walls"]) == {"bf16", "int8"}
+            assert set(m["prefill_chunk_walls"]) == {"0", "16"}
+        if m["level"] == 7:
+            want |= _SERVE_META_SPEC
+            assert set(m["draft_k_walls"]) == {"0", "2", "4", "8"}
+        assert want | {"traffic"} <= set(m), m["level"]
+        assert set(m) <= _SERVE_META | _SERVE_META_PAGED | \
+            _SERVE_META_SPEC | {"traffic"}
+        assert m["devices"] == 1
+        assert m["layout"] == ("paged" if m["level"] >= 6 else "contiguous")
+        if m["kv_dtype"] == "bf16":
+            assert m["generated"] == base, m["level"]
+        t = m["traffic"]
+        assert t["rate_rps"] == 200.0 and t["pattern"] == "poisson"
+        assert t["requests"] == 8 and t["tokens"] > 0
+    with pytest.raises(SystemExit):
+        main(["--serve", "--kernel", "gemm"])
+
+
+def test_serving_backend_pinned_kernel_records_what_ran(one_thread):
+    """A pinned ``paged_attn="kernel"`` races nothing: its walls are keyed
+    by the implementation that ran; on the CPU the kernel rung takes the
+    plain version, so no launch is counted."""
+    from repro_torch.autotune import ServingBackend
+    from repro_torch.kernels.paged_attention import ops
+
+    before = ops.paged_attention.launches
+    b = ServingBackend(device="cpu", n_requests=4, max_new=3, repeats=1,
+                       paged_attn="kernel", kv_dtype="bf16",
+                       prefill_chunk=0, draft_k=0)
+    m = b.measure(OptLevel.O6)
+    assert m.meta["paged_attn"] == "kernel"
+    assert m.meta["paged_attn_walls"].keys() == {"kernel"}
+    assert "kv_dtype_walls" not in m.meta and "traffic" not in m.meta
+    assert m.meta["prefill_chunk"] == 0 and m.total_s == m.compute_s > 0
+    assert m.meta["kv_capacity"] == 4 * 48
+    assert ops.paged_attention.launches == before

@@ -152,3 +152,24 @@ def test_paper_layer_defaults_to_cuda_and_never_falls_back(monkeypatch):
         assert torch.equal(mops.matmul(a, a, level),
                            torch.full((32, 32), 32.0))
     assert (mops.matmul_whole.launches, mops.matmul_tiled.launches) == counts
+
+
+def test_the_scan_covers_the_serving_front_end():
+    mods = set(_modules())
+    assert {"repro_torch.launch.server", "repro_torch.launch.serve",
+            "repro_torch.serving.engine", "repro_torch.serving.cache",
+            "repro_torch.serving.paged",
+            "repro_torch.autotune.measurement",
+            "repro_torch.autotune.__main__"} <= mods
+
+
+def test_serving_walk_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    from repro_torch.autotune import ServingBackend
+    from repro_torch.autotune.__main__ import main
+    from repro_torch.core.optlevel import OptLevel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingBackend().measure(OptLevel.O0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--serve", "--arch", "qwen3-8b"])

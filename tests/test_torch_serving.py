@@ -1,5 +1,5 @@
-"""The port's DecodeEngine on its rungs (O2, O4, O5, O6-gather, O6-kernel,
-O7) and with chunked prefill, against the JAX O5 engine.
+"""The port's DecodeEngine on its rungs (O0, O1, O2, O4, O5, O6-gather,
+O6-kernel, O7) and with chunked prefill, against the JAX O5 engine.
 
 In float32 compute the port's greedy tokens are identical to the JAX O5
 contiguous engine's (the reference's O6 and O7 are not the oracle:
@@ -8,7 +8,9 @@ arrivals, planted eos, a block pool small enough to queue.  In bf16 the
 port's rungs give identical tokens among themselves.  Everything runs on
 the CPU, where the O6 kernel rung takes the kernels' plain versions.
 O7 is paged, as in the reference (its ladder includes O6), so its two
-cells are the gather (dense) verify step and the kernel (B2) one.
+cells are the gather (dense) verify step and the kernel (B2) one.  O0
+and O1 run the un-pipelined loop (a batch-1 model call per request per
+tick, O0 rebuilding the cache at each admission).
 """
 
 import dataclasses
@@ -39,6 +41,8 @@ _WORKLOAD = [([5, 6, 7], 4), ([9], 6), ([3, 1, 4, 1], 3), ([2, 2], 5),
              ([8, 8, 8, 8, 8], 2), ([4, 2], 4)]
 
 RUNGS = {
+    "O0": dict(level=OptLevel.O0),
+    "O1": dict(level=OptLevel.O1),
     "O2": dict(level=OptLevel.O2),
     "O4": dict(level=OptLevel.O4),
     "O5": dict(level=OptLevel.O5),
@@ -142,7 +146,8 @@ def test_f32_greedy_tokens_identical_to_jax_o5(rung):
         [n for _, n in _WORKLOAD]
 
 
-@pytest.mark.parametrize("rung", ["O2", "O4", "O6-gather", "O6-kernel"])
+@pytest.mark.parametrize("rung", ["O0", "O1", "O2", "O4", "O6-gather",
+                                  "O6-kernel"])
 def test_bf16_rungs_identical_to_port_o5(rung):
     mix, eos, late, _ = _mixes()["fuzz"]
     want = _port(mix, "O5", dtype="bfloat16", eos=eos, late_from=late)
@@ -179,7 +184,7 @@ def test_constrained_pool_queues_and_drains(rung):
 
 @pytest.mark.parametrize("kind,kw", [("temperature", dict(temperature=1.3)),
                                      ("top_k", dict(top_k=5))])
-@pytest.mark.parametrize("rung", ["O5", "O6-kernel"])
+@pytest.mark.parametrize("rung", ["O0", "O1", "O5", "O6-kernel"])
 def test_stochastic_samplers_deterministic_per_seed(kind, kw, rung):
     mix = _random_mix(7, n=5)
 
@@ -191,16 +196,6 @@ def test_stochastic_samplers_deterministic_per_seed(kind, kw, rung):
     assert a == b
     assert [len(g) for g in a] == [n for _, n in mix]
     assert run(4) != a
-
-
-@pytest.mark.parametrize("cfg_kw", [
-    dict(level=OptLevel.O0), dict(level=OptLevel.O1),
-], ids=["O0", "O1"])
-def test_unported_rungs_raise(cfg_kw):
-    _, _, tm, tp = _models("float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(tm, tp, batch_size=2, max_seq=16,
-                     config=BestEffortConfig(**cfg_kw))
 
 
 def test_placement_and_attn_impl_recorded():
