@@ -210,7 +210,12 @@ Phases (any failure raises, and the script exits non-zero):
               the analytic model's), with O2 -> O3 read in two steps
               (PE duplication on the CUDA cores, then the tensor cores);
               ``machsuite.gemm.run`` at every level on the card at 32 x
-              32, held to the float64 oracle;
+              32, held to the float64 oracle; ``machsuite.aes``, ``kmp``
+              and ``nw`` at every level on the card at the reference
+              tests' scales (2 KB, a 4 KB string, 16 pairs of 8) and nw
+              at Table 3's length 128 (16 pairs, O2..O5), each output
+              equal to the oracle, the cuts printed, the wall per rung
+              beside the paper model's speedups (Fig. 12's analogue);
  10. walk   — ``python -m repro_torch.autotune --serve --arch qwen3-8b``
               in this process at the reference's defaults (smoke width,
               O0 -> O7, the paged-attention, prefill-chunk, draft-K and
@@ -3630,7 +3635,8 @@ def phase_paper_ladder() -> dict:
     version; the Fig. 4 analogue (device ms per rung, speedup over O0
     and over the rung before, beside the paper model's); then
     ``machsuite.gemm.run`` at every level on the card at the reference
-    tests' scale (32 x 32) held to the float64 oracle."""
+    tests' scale (32 x 32) held to the float64 oracle; then the byte
+    kernels (``machsuite_bytes``)."""
     import numpy as np
     import torch
     from repro_torch.core import costmodel
@@ -3747,7 +3753,130 @@ def phase_paper_ladder() -> dict:
         f"the oracle (rtol 2e-4, atol 1e-5); wall s: "
         f"{ {k: round(v['wall_s'], 4) for k, v in machsuite.items()} }")
     return {"launches": launches, "body_launches": body_launches, "ms": ms,
-            "fig4": rows, "o2_to_o3": split, "machsuite_gemm": machsuite}
+            "fig4": rows, "o2_to_o3": split, "machsuite_gemm": machsuite,
+            "machsuite_bytes": machsuite_bytes()}
+
+
+# The byte kernels on the card run at the reference tests' scales (each
+# module's TEST_SCALE: their O0/O1 issue a torch op per byte or DP cell, so
+# Table 3's sizes would take hours); nw also at Table 3's sequence length
+# on its wavefront rungs, and aes and nw at O3..O5 over many slabs or
+# batches, where the rotation's one extra compute on its empty slot is
+# 1/n of the work and not 1/2.
+BYTE_TABLE3 = {"aes": "64 MB of data, 256-bit key",
+               "kmp": "128 MB string, 16-byte pattern",
+               "nw": "65,536 pairs of length 128"}
+NW_TABLE3_L, NW_TABLE3_PAIRS, NW_MANY_PAIRS = 128, 16, 256
+AES_MANY_BYTES = 64 * 1024
+
+
+def _shape_of(name: str, inp: dict) -> str:
+    if name == "aes":
+        return f"{inp['data'].size:,} bytes, 256-bit key"
+    if name == "kmp":
+        return (f"{inp['text'].size:,}-byte string, "
+                f"{inp['pattern'].size}-byte pattern")
+    n, L = inp["seq_a"].shape
+    return f"{n} pairs of length {L}"
+
+
+def _byte_rung(mod, level: int, inp: dict, want, label: str) -> float:
+    """One warm run and the timed runs of ``mod.run(level, **inp)`` on the
+    card, each held to the oracle exactly; the median wall in s."""
+    import numpy as np
+    import torch
+
+    walls = []
+    for rep in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.run(level, **inp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if out.device.type != "cuda":
+            raise AssertionError(f"{label} O{level} ran on {out.device}")
+        np.testing.assert_array_equal(out.cpu().numpy(), want,
+                                      err_msg=f"{label} O{level}")
+        if rep == 1 and walls[1] > 0.2:     # the slow rungs: one timed run
+            break
+    return statistics.median(walls[1:])
+
+
+def machsuite_bytes() -> dict:
+    """Phase 9's byte kernels: ``aes``, ``kmp`` and ``nw`` run at every
+    level O0..O5 on the card at the reference tests' scales, each output
+    on ``cuda`` and equal to the numpy oracle; kmp also with a short
+    pattern planted across its chunk and PE edges, so that the count it
+    is held to is not 0; nw also at Table 3's length (128) with 16 pairs
+    at O2..O5 (O0/O1 would issue ~1.3M single-cell steps there); aes at
+    64 KB (64 slabs) and nw at 256 pairs of 128 (16 batches) at O3..O5.
+    The wall per rung (median after one warm run), the speedup
+    over the first rung run and over the rung before, beside the
+    paper's 2012 FPGA model's (``costmodel.refinement_curve``)."""
+    import numpy as np
+    from repro_torch.core import costmodel
+    from repro_torch.machsuite import aes, kmp, nw
+
+    t_part = time.perf_counter()
+    out = {}
+    cases = [(name, mod, mod.make_inputs(np.random.default_rng(0),
+                                         mod.TEST_SCALE), range(6), "")
+             for name, mod in (("aes", aes), ("kmp", kmp), ("nw", nw))]
+    cases.insert(2, ("kmp planted", kmp, kmp.with_planted_matches(
+        cases[1][2]), range(6), "; a 5-byte pattern planted across every "
+        "chunk and PE edge (the 16-byte one occurs nowhere)"))
+    cases.append(("aes 64 KB", aes, aes.make_inputs(
+        np.random.default_rng(0), AES_MANY_BYTES / 64e6), range(3, 6),
+        "; O3..O5 only"))
+
+    def nw_pairs(n_pairs):
+        r = np.random.default_rng(NW_TABLE3_L)
+        return {k: r.integers(0, 4, (n_pairs, NW_TABLE3_L), np.uint8)
+                for k in ("seq_a", "seq_b")}
+    cases.append(("nw L=128", nw, nw_pairs(NW_TABLE3_PAIRS), range(2, 6),
+                  "; O0/O1 stay at length 8"))
+    cases.append((f"nw {NW_MANY_PAIRS}x128", nw, nw_pairs(NW_MANY_PAIRS),
+                  range(3, 6), "; O3..O5 only"))
+    log("[paper] MachSuite byte kernels on the card; Table 3's sizes cut "
+        "(O0/O1 issue a torch op per byte or DP cell):")
+    for name, mod, inp, levels, note in cases:
+        kernel = name.split()[0]
+        log(f"[paper]   {name}: Table 3's {BYTE_TABLE3[kernel]} cut to "
+            f"{_shape_of(kernel, inp)}{note}")
+    for name, mod, inp, levels, _ in cases:
+        want = np.asarray(mod.oracle(**inp))
+        if name == "kmp planted" and not want >= kmp.PE_NUM:
+            raise AssertionError(f"kmp planted: the oracle counts {want}")
+        walls = {level: _byte_rung(mod, level, inp, want, name)
+                 for level in levels}
+        model = costmodel.refinement_curve(mod.PROFILE)
+        first = min(walls)
+        rows = []
+        log(f"[paper] {name}: wall per rung on the card (every output on "
+            f"cuda, equal to the oracle); the model's speedups are the "
+            f"paper's 2012 FPGA platform, not the card:")
+        for level, wall in walls.items():
+            prev = walls.get(level - 1, wall)
+            row = {"level": level, "wall_s": wall,
+                   f"x_vs_O{first}": walls[first] / wall,
+                   "x_vs_prev": prev / wall,
+                   f"model_x_vs_O{first}": (model[first]["kernel_s"]
+                                            / model[level]["kernel_s"]),
+                   "model_x_vs_prev": (model[max(level - 1, first)]
+                                       ["kernel_s"]
+                                       / model[level]["kernel_s"])}
+            rows.append(row)
+            log(f"[paper]   O{level}: {wall:10.5f} s  "
+                f"{row[f'x_vs_O{first}']:8.2f}x vs O{first}  "
+                f"{row['x_vs_prev']:7.2f}x vs O{max(level - 1, first)}  "
+                f"(model {row[f'model_x_vs_O{first}']:.1f}x vs O{first}, "
+                f"{row['model_x_vs_prev']:.2f}x vs "
+                f"O{max(level - 1, first)})")
+        out[name] = {"shape": _shape_of(name.split()[0], inp),
+                     "table3": BYTE_TABLE3[name.split()[0]], "rows": rows}
+    out["wall_s"] = time.perf_counter() - t_part
+    log(f"[wall] phase 9 byte kernels: {out['wall_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------

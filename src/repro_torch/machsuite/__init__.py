@@ -25,15 +25,23 @@ The level variants are the paper's Fig. 4 code walk:
   O4  double buffering: explicit 3-slot load/compute/store rotation
   O5  scratchpad reorganization: packed wide-word staging buffers
 
-Only gemm is ported.  The other seven (aes, bfs, kmp, nw, sort, spmv,
-viterbi) are queued in ROADMAP A18; the analytic model already covers
-all eight (``python -m repro_torch.autotune --kernel all``).
+Ported: gemm, and the three byte kernels aes, kmp and nw, whose O5
+stages packed 32-bit words (``common.pack_u8_to_u32``).  Their CPU tests
+hold every level to the reference's ``run`` and oracle
+(``tests/test_torch_machsuite.py``, ``tests/test_torch_machsuite_bytes.py``);
+``chip_smoke.py`` phase 9 runs every level of all four on the card
+against the oracle, the byte kernels at their modules' ``TEST_SCALE``.  The other four (bfs, sort, spmv, viterbi) are
+queued in ROADMAP A18b; the analytic model already covers all eight
+(``python -m repro_torch.autotune --kernel all``).
 """
 
-from repro_torch.machsuite import gemm
+from repro_torch.machsuite import aes, gemm, kmp, nw
 
 KERNELS = {
+    "aes": aes,
     "gemm": gemm,
+    "kmp": kmp,
+    "nw": nw,
 }
 
 KERNEL_NAMES = tuple(KERNELS)

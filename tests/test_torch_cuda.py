@@ -7,7 +7,8 @@ B4 RWKV-6 WKV and B5 Mamba-2 SSD in both bodies — the chunk-parallel
 body otherwise —, B6/B7 tiled matmul, B6 in its three
 bodies — bf16 tiles on wgmma fed by TMA, the f32 rungs with a block per
 tile on 3xTF32 mma.sync, the rest on the CUDA cores) against
-their plain PyTorch versions on the card.  They carry the ``cuda`` marker and
+their plain PyTorch versions on the card; and the MachSuite byte kernels
+(aes, kmp, nw) at every level on the card against their oracles.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1064,3 +1065,30 @@ def test_matmul_tf32x3_body_matches_plain(shape, blocks, lvl):
     assert mops.matmul_tiled.body_launches == {
         **before, which: before[which] + 1}
     _matmul_close(got, matmul_tiled_ref(a, b, bk=args["bk"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["aes", "kmp", "nw"])
+def test_machsuite_byte_kernels_on_the_card_equal_the_oracle(name):
+    """Every level of aes, kmp and nw on the card, at the reference
+    tests' scales (``TEST_SCALE``), exactly equal to the numpy oracle;
+    kmp also with matches planted (the 16-character pattern finds none
+    there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs the ladder on the card)")
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.machsuite.{name}")
+    cases = [(mod.make_inputs(np.random.default_rng(seed), mod.TEST_SCALE),
+              False) for seed in (0, 1234)]
+    if name == "kmp":
+        cases += [(mod.with_planted_matches(inp), True) for inp, _ in cases]
+    for inp, planted in cases:
+        want = np.asarray(mod.oracle(**inp))
+        if planted:
+            assert want >= mod.PE_NUM, want
+        for level in range(6):
+            out = mod.run(level, **inp)
+            assert out.device.type == "cuda", (name, level)
+            np.testing.assert_array_equal(out.cpu().numpy(), want,
+                                          err_msg=f"{name} O{level}")

@@ -154,6 +154,27 @@ def test_paper_layer_defaults_to_cuda_and_never_falls_back(monkeypatch):
     assert (mops.matmul_whole.launches, mops.matmul_tiled.launches) == counts
 
 
+def test_the_scan_covers_the_byte_kernels():
+    assert {"repro_torch.machsuite.aes", "repro_torch.machsuite.kmp",
+            "repro_torch.machsuite.nw"} <= set(_modules())
+
+
+@pytest.mark.parametrize("name", ["aes", "kmp", "nw"])
+def test_byte_kernels_default_to_cuda_and_never_fall_back(monkeypatch,
+                                                          name):
+    import importlib
+
+    import numpy as np
+
+    mod = importlib.import_module(f"repro_torch.machsuite.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inp = mod.make_inputs(np.random.default_rng(0), 1e-9)
+    for level in range(6):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.run(level, **inp)
+    assert mod.run(5, **inp, device="cpu").device.type == "cpu"
+
+
 def test_the_scan_covers_the_serving_front_end():
     mods = set(_modules())
     assert {"repro_torch.launch.server", "repro_torch.launch.serve",

@@ -71,7 +71,8 @@ def test_oracle_equals_the_reference_oracle():
 
 
 def test_registry_and_profile():
-    assert set(KERNELS) == {"gemm"} and KERNELS["gemm"] is gemm
+    assert set(KERNELS) == {"aes", "gemm", "kmp", "nw"}
+    assert KERNELS["gemm"] is gemm
     assert gemm.PROFILE.name == "gemm"
     assert gemm.PROFILE == MACHSUITE_PROFILES["gemm"]
 
