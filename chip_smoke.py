@@ -216,6 +216,14 @@ Phases (any failure raises, and the script exits non-zero):
               at Table 3's length 128 (16 pairs, O2..O5), each output
               equal to the oracle, the cuts printed, the wall per rung
               beside the paper model's speedups (Fig. 12's analogue);
+              ``machsuite.bfs``, ``sort``, ``spmv`` and ``viterbi`` the
+              same way at their tests' scales (bfs also with unreachable
+              nodes and at 32 nodes / 512 edges, where O1 runs 2 tiles)
+              and at Table 3's sizes from O1 (bfs) or O2: 4,096 nodes /
+              65,536 edges, 64 MB of int32 in 1 MB chunks, 4,096 x 512,
+              and the 64-state HMM cut to 64 chains; spmv held within
+              the reference's tolerance, the others exactly, so all
+              eight of the paper's kernels run on the card;
  10. walk   — ``python -m repro_torch.autotune --serve --arch qwen3-8b``
               in this process at the reference's defaults (smoke width,
               O0 -> O7, the paged-attention, prefill-chunk, draft-K and
@@ -3754,7 +3762,8 @@ def phase_paper_ladder() -> dict:
         f"{ {k: round(v['wall_s'], 4) for k, v in machsuite.items()} }")
     return {"launches": launches, "body_launches": body_launches, "ms": ms,
             "fig4": rows, "o2_to_o3": split, "machsuite_gemm": machsuite,
-            "machsuite_bytes": machsuite_bytes()}
+            "machsuite_bytes": machsuite_bytes(),
+            "machsuite_rest": machsuite_rest()}
 
 
 # The byte kernels on the card run at the reference tests' scales (each
@@ -3762,12 +3771,20 @@ def phase_paper_ladder() -> dict:
 # Table 3's sizes would take hours); nw also at Table 3's sequence length
 # on its wavefront rungs, and aes and nw at O3..O5 over many slabs or
 # batches, where the rotation's one extra compute on its empty slot is
-# 1/n of the work and not 1/2.
-BYTE_TABLE3 = {"aes": "64 MB of data, 256-bit key",
-               "kmp": "128 MB string, 16-byte pattern",
-               "nw": "65,536 pairs of length 128"}
+# 1/n of the work and not 1/2.  bfs, sort, spmv and viterbi run at their
+# TEST_SCALE too, and at Table 3's sizes from the first rung whose op
+# count allows it (viterbi's 1M chains cut to 64).
+TABLE3 = {"aes": "64 MB of data, 256-bit key",
+          "kmp": "128 MB string, 16-byte pattern",
+          "nw": "65,536 pairs of length 128",
+          "bfs": "4,096 nodes, 65,536 edges",
+          "sort": "64 MB of int32 in 1 MB chunks",
+          "spmv": "4,096 x 512 ELLPACK",
+          "viterbi": "1M chains of 128 observations, S = M = 64"}
 NW_TABLE3_L, NW_TABLE3_PAIRS, NW_MANY_PAIRS = 128, 16, 256
 AES_MANY_BYTES = 64 * 1024
+VITERBI_TABLE3_CHAINS = 64
+SPMV_TOL = {"rtol": 2e-4, "atol": 1e-5}     # tests/test_machsuite.py's
 
 
 def _shape_of(name: str, inp: dict) -> str:
@@ -3776,17 +3793,30 @@ def _shape_of(name: str, inp: dict) -> str:
     if name == "kmp":
         return (f"{inp['text'].size:,}-byte string, "
                 f"{inp['pattern'].size}-byte pattern")
-    n, L = inp["seq_a"].shape
-    return f"{n} pairs of length {L}"
+    if name == "nw":
+        n, L = inp["seq_a"].shape
+        return f"{n} pairs of length {L}"
+    if name == "bfs":
+        return (f"{inp['offsets'].size - 1:,} nodes, "
+                f"{inp['neighbors'].size:,} edges")
+    if name == "sort":
+        n = inp["data"].size // inp["chunk"]
+        return f"{n} chunks of {inp['chunk']:,} int32"
+    if name == "spmv":
+        return "{:,} x {:,} ELLPACK".format(*inp["vals"].shape)
+    n, T = inp["obs"].shape
+    S, M = inp["emit"].shape
+    return f"{n:,} chains of {T}, S = {S}, M = {M}"
 
 
-def _byte_rung(mod, level: int, inp: dict, want, label: str) -> float:
+def _rung(mod, level: int, inp: dict, want, label: str, tol=None) -> tuple:
     """One warm run and the timed runs of ``mod.run(level, **inp)`` on the
-    card, each held to the oracle exactly; the median wall in s."""
+    card, each held to the oracle: exactly, or within ``tol`` (rtol,
+    atol).  The median wall in s and the largest difference."""
     import numpy as np
     import torch
 
-    walls = []
+    walls, err = [], 0.0
     for rep in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3795,11 +3825,66 @@ def _byte_rung(mod, level: int, inp: dict, want, label: str) -> float:
         walls.append(time.perf_counter() - t0)
         if out.device.type != "cuda":
             raise AssertionError(f"{label} O{level} ran on {out.device}")
-        np.testing.assert_array_equal(out.cpu().numpy(), want,
-                                      err_msg=f"{label} O{level}")
+        got = out.cpu().numpy()
+        if tol is None:
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{label} O{level}")
+        else:
+            np.testing.assert_allclose(got, want, **tol,
+                                       err_msg=f"{label} O{level}")
+        err = max(err, float(np.abs(got.astype(np.float64) - want).max()))
         if rep == 1 and walls[1] > 0.2:     # the slow rungs: one timed run
             break
-    return statistics.median(walls[1:])
+    return statistics.median(walls[1:]), err
+
+
+def _walk_rungs(name: str, mod, inp: dict, levels, want, tol=None) -> dict:
+    """``name``'s rungs ``levels`` on the card against ``want``: the wall
+    per rung, its speedup over the first rung run and over the rung
+    before, beside the paper's 2012 FPGA model's
+    (``costmodel.refinement_curve``), logged and returned."""
+    from repro_torch.core import costmodel
+
+    timed = {level: _rung(mod, level, inp, want, name, tol)
+             for level in levels}
+    model = costmodel.refinement_curve(mod.PROFILE)
+    first = min(timed)
+    rows = []
+    held = ("equal to the oracle" if tol is None else
+            f"within rtol {tol['rtol']:g} / atol {tol['atol']:g} of the "
+            f"oracle")
+    log(f"[paper] {name}: wall per rung on the card (every output on "
+        f"cuda, {held}); the model's speedups are the paper's 2012 FPGA "
+        f"platform, not the card:")
+    for level, (wall, err) in timed.items():
+        prev = timed.get(level - 1, (wall, err))[0]
+        row = {"level": level, "wall_s": wall,
+               f"x_vs_O{first}": timed[first][0] / wall,
+               "x_vs_prev": prev / wall,
+               f"model_x_vs_O{first}": (model[first]["kernel_s"]
+                                        / model[level]["kernel_s"]),
+               "model_x_vs_prev": (model[max(level - 1, first)]["kernel_s"]
+                                   / model[level]["kernel_s"])}
+        if tol is not None:
+            row["max_abs_err"] = err
+        rows.append(row)
+        log(f"[paper]   O{level}: {wall:10.5f} s  "
+            f"{row[f'x_vs_O{first}']:8.2f}x vs O{first}  "
+            f"{row['x_vs_prev']:7.2f}x vs O{max(level - 1, first)}  "
+            f"(model {row[f'model_x_vs_O{first}']:.1f}x vs O{first}, "
+            f"{row['model_x_vs_prev']:.2f}x vs O{max(level - 1, first)})"
+            + (f"  max |err| {err:.3e}" if tol is not None else ""))
+    kernel = name.split()[0]
+    return {"shape": _shape_of(kernel, inp), "table3": TABLE3[kernel],
+            "rows": rows}
+
+
+def _log_cuts(cases) -> None:
+    for name, mod, inp, levels, note in cases:
+        kernel = name.split()[0]
+        log(f"[paper]   {name}: Table 3's {TABLE3[kernel]} cut to "
+            f"{_shape_of(kernel, inp)}; O{min(levels)}..O{max(levels)}"
+            f"{note}")
 
 
 def machsuite_bytes() -> dict:
@@ -3814,7 +3899,6 @@ def machsuite_bytes() -> dict:
     over the first rung run and over the rung before, beside the
     paper's 2012 FPGA model's (``costmodel.refinement_curve``)."""
     import numpy as np
-    from repro_torch.core import costmodel
     from repro_torch.machsuite import aes, kmp, nw
 
     t_part = time.perf_counter()
@@ -3826,8 +3910,7 @@ def machsuite_bytes() -> dict:
         cases[1][2]), range(6), "; a 5-byte pattern planted across every "
         "chunk and PE edge (the 16-byte one occurs nowhere)"))
     cases.append(("aes 64 KB", aes, aes.make_inputs(
-        np.random.default_rng(0), AES_MANY_BYTES / 64e6), range(3, 6),
-        "; O3..O5 only"))
+        np.random.default_rng(0), AES_MANY_BYTES / 64e6), range(3, 6), ""))
 
     def nw_pairs(n_pairs):
         r = np.random.default_rng(NW_TABLE3_L)
@@ -3836,46 +3919,75 @@ def machsuite_bytes() -> dict:
     cases.append(("nw L=128", nw, nw_pairs(NW_TABLE3_PAIRS), range(2, 6),
                   "; O0/O1 stay at length 8"))
     cases.append((f"nw {NW_MANY_PAIRS}x128", nw, nw_pairs(NW_MANY_PAIRS),
-                  range(3, 6), "; O3..O5 only"))
+                  range(3, 6), ""))
     log("[paper] MachSuite byte kernels on the card; Table 3's sizes cut "
         "(O0/O1 issue a torch op per byte or DP cell):")
-    for name, mod, inp, levels, note in cases:
-        kernel = name.split()[0]
-        log(f"[paper]   {name}: Table 3's {BYTE_TABLE3[kernel]} cut to "
-            f"{_shape_of(kernel, inp)}{note}")
+    _log_cuts(cases)
     for name, mod, inp, levels, _ in cases:
         want = np.asarray(mod.oracle(**inp))
         if name == "kmp planted" and not want >= kmp.PE_NUM:
             raise AssertionError(f"kmp planted: the oracle counts {want}")
-        walls = {level: _byte_rung(mod, level, inp, want, name)
-                 for level in levels}
-        model = costmodel.refinement_curve(mod.PROFILE)
-        first = min(walls)
-        rows = []
-        log(f"[paper] {name}: wall per rung on the card (every output on "
-            f"cuda, equal to the oracle); the model's speedups are the "
-            f"paper's 2012 FPGA platform, not the card:")
-        for level, wall in walls.items():
-            prev = walls.get(level - 1, wall)
-            row = {"level": level, "wall_s": wall,
-                   f"x_vs_O{first}": walls[first] / wall,
-                   "x_vs_prev": prev / wall,
-                   f"model_x_vs_O{first}": (model[first]["kernel_s"]
-                                            / model[level]["kernel_s"]),
-                   "model_x_vs_prev": (model[max(level - 1, first)]
-                                       ["kernel_s"]
-                                       / model[level]["kernel_s"])}
-            rows.append(row)
-            log(f"[paper]   O{level}: {wall:10.5f} s  "
-                f"{row[f'x_vs_O{first}']:8.2f}x vs O{first}  "
-                f"{row['x_vs_prev']:7.2f}x vs O{max(level - 1, first)}  "
-                f"(model {row[f'model_x_vs_O{first}']:.1f}x vs O{first}, "
-                f"{row['model_x_vs_prev']:.2f}x vs "
-                f"O{max(level - 1, first)})")
-        out[name] = {"shape": _shape_of(name.split()[0], inp),
-                     "table3": BYTE_TABLE3[name.split()[0]], "rows": rows}
+        out[name] = _walk_rungs(name, mod, inp, levels, want)
     out["wall_s"] = time.perf_counter() - t_part
     log(f"[wall] phase 9 byte kernels: {out['wall_s']:.1f} s")
+    return out
+
+
+def machsuite_rest() -> dict:
+    """Phase 9's other four MachSuite kernels: ``bfs``, ``sort``,
+    ``spmv`` and ``viterbi`` at every level O0..O5 on the card at the
+    reference tests' scales, bfs also with a third of its nodes
+    unreachable (``bfs.with_unreachable``) and at 32 nodes / 512 edges
+    (O1's two tiles); then Table 3's sizes where the rungs' op counts
+    allow: bfs 4,096 nodes / 65,536 edges at O1..O5 (256 tiles a level
+    at O1), sort 64 chunks of 262,144 int32 at O2..O5 (171 bitonic
+    stages a chunk), spmv 4,096 x 512 at O2..O5, and viterbi's HMM
+    (S = M = 64, T = 128) cut to 64 chains at O2..O5.  Each output on
+    ``cuda`` and held to the numpy oracle: ints and viterbi exactly,
+    spmv within the reference's tolerance (its largest difference
+    logged).  The walls per rung beside the model's, as
+    ``machsuite_bytes`` logs them."""
+    import numpy as np
+    from repro_torch.machsuite import bfs, sort, spmv, viterbi
+
+    t_part = time.perf_counter()
+    rng = lambda: np.random.default_rng(0)
+    test = {mod: mod.make_inputs(rng(), mod.TEST_SCALE)
+            for mod in (bfs, sort, spmv, viterbi)}
+    every, o1_up, o2_up = range(6), range(1, 6), range(2, 6)
+    cases = [
+        ("bfs", bfs, test[bfs], every, ""),
+        ("bfs unreachable", bfs, bfs.with_unreachable(test[bfs]), every,
+         "; isolated nodes appended (the drawn graph reaches every node)"),
+        ("bfs 32/4096", bfs, bfs.make_inputs(rng(), 32 / 4096), every,
+         "; O1 in 2 tiles"),
+        ("sort", sort, test[sort], every, ""),
+        ("spmv", spmv, test[spmv], every, ""),
+        ("viterbi", viterbi, test[viterbi], every, ""),
+        ("bfs Table 3", bfs, bfs.make_inputs(rng(), 1.0), o1_up,
+         "; O0 would walk 65,536 edges one at a time"),
+        ("sort Table 3", sort, sort.make_inputs(rng(), 1.0), o2_up,
+         "; O0/O1 would take ~2^34 shifts a chunk"),
+        ("spmv Table 3", spmv, spmv.make_inputs(rng(), 1.0), o2_up,
+         "; O0/O1 would take 2M single-cell steps"),
+        ("viterbi Table 3", viterbi, viterbi.make_inputs(
+            rng(), 1.0, n_chains=VITERBI_TABLE3_CHAINS), o2_up,
+         "; 64 chains, O0/O1 would take 33M scalar steps"),
+    ]
+    log("[paper] MachSuite bfs, sort, spmv and viterbi on the card; "
+        "Table 3's sizes cut (O0/O1 issue a torch op per edge, shift, "
+        "cell or state pair):")
+    _log_cuts(cases)
+    out = {}
+    for name, mod, inp, levels, _ in cases:
+        want = np.asarray(mod.oracle(**inp))
+        if name == "bfs unreachable" and not (
+                (want == -1).sum() * 4 >= want.size):
+            raise AssertionError(f"bfs unreachable: {want}")
+        tol = SPMV_TOL if mod is spmv else None
+        out[name] = _walk_rungs(name, mod, inp, levels, want, tol)
+    out["wall_s"] = time.perf_counter() - t_part
+    log(f"[wall] phase 9 bfs/sort/spmv/viterbi: {out['wall_s']:.1f} s")
     return out
 
 

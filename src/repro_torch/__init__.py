@@ -21,8 +21,8 @@ with the forward's causal attention in a CUDA flash-attention kernel
 train too, with their scans in CUDA (``kernels/rwkv6_wkv``,
 ``kernels/mamba2_ssd``).  The paper layer runs the paper's O0..O5 ladder:
 the blocked matmul of its Fig. 4 as CUDA kernels B6/B7
-(``kernels/tiled_matmul``), MachSuite gemm at every level
-(``machsuite``), and the analytic cost model with its closed-loop
+(``kernels/tiled_matmul``), all eight MachSuite kernels at every
+level (``machsuite``), and the analytic cost model with its closed-loop
 autotuner (``core.costmodel``, ``core.guideline``, ``autotune``;
 ``python -m repro_torch.autotune --kernel gemm``).  Everything else
 raises ``NotImplementedError`` naming its ROADMAP item.

@@ -1092,3 +1092,33 @@ def test_machsuite_byte_kernels_on_the_card_equal_the_oracle(name):
             assert out.device.type == "cuda", (name, level)
             np.testing.assert_array_equal(out.cpu().numpy(), want,
                                           err_msg=f"{name} O{level}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bfs", "sort", "spmv", "viterbi"])
+def test_machsuite_rest_on_the_card_equal_the_oracle(name):
+    """Every level of bfs, sort, spmv and viterbi on the card, at the
+    reference tests' scales (``TEST_SCALE``), seeds 0 and 1234, held to
+    the numpy oracle: ints and viterbi exactly, spmv at the reference's
+    tolerance; bfs also with a third of its nodes unreachable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs the ladder on the card)")
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.machsuite.{name}")
+    cases = [mod.make_inputs(np.random.default_rng(seed), mod.TEST_SCALE)
+             for seed in (0, 1234)]
+    if name == "bfs":
+        cases += [mod.with_unreachable(inp) for inp in cases]
+    for inp in cases:
+        want = np.asarray(mod.oracle(**inp))
+        for level in range(6):
+            out = mod.run(level, **inp)
+            assert out.device.type == "cuda", (name, level)
+            if name == "spmv":
+                np.testing.assert_allclose(out.cpu().numpy(), want,
+                                           rtol=2e-4, atol=1e-5,
+                                           err_msg=f"{name} O{level}")
+            else:
+                np.testing.assert_array_equal(out.cpu().numpy(), want,
+                                              err_msg=f"{name} O{level}")

@@ -155,11 +155,13 @@ def test_paper_layer_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_the_scan_covers_the_byte_kernels():
-    assert {"repro_torch.machsuite.aes", "repro_torch.machsuite.kmp",
-            "repro_torch.machsuite.nw"} <= set(_modules())
+    assert {f"repro_torch.machsuite.{name}" for name in (
+        "aes", "bfs", "kmp", "nw", "sort", "spmv", "viterbi")} <= set(
+            _modules())
 
 
-@pytest.mark.parametrize("name", ["aes", "kmp", "nw"])
+@pytest.mark.parametrize("name", ["aes", "kmp", "nw", "bfs", "sort", "spmv",
+                                  "viterbi"])
 def test_byte_kernels_default_to_cuda_and_never_fall_back(monkeypatch,
                                                           name):
     import importlib

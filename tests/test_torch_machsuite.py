@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.machsuite import KERNELS as JKERNELS
 from repro.machsuite import gemm as jgemm
 from repro_torch.core.costmodel import MACHSUITE_PROFILES
 from repro_torch.core.optlevel import OptLevel
@@ -71,7 +72,8 @@ def test_oracle_equals_the_reference_oracle():
 
 
 def test_registry_and_profile():
-    assert set(KERNELS) == {"aes", "gemm", "kmp", "nw"}
+    assert set(KERNELS) == {"aes", "bfs", "gemm", "kmp", "nw", "sort",
+                            "spmv", "viterbi"} == set(JKERNELS)
     assert KERNELS["gemm"] is gemm
     assert gemm.PROFILE.name == "gemm"
     assert gemm.PROFILE == MACHSUITE_PROFILES["gemm"]
