@@ -1,8 +1,8 @@
 """Architecture and shape configs (port copy of the fields it reads).
 
-The fields of ``repro/configs/base.py::ArchConfig`` that the dense
-serving and training paths and the rwkv6 and mamba2 training paths
-read, with the same names and defaults, and ``ShapeConfig``/``SHAPES``.
+The fields of ``repro/configs/base.py::ArchConfig`` that the serving
+and training paths of the dense, rwkv6 and mamba2 families read, with
+the same names and defaults, and ``ShapeConfig``/``SHAPES``.
 The reference's sharding and scan knobs (``constrain`` axes,
 ``unroll_layers``) have no counterpart: the port runs on one device and
 loops over layers in Python.  Families and features outside the port
@@ -18,8 +18,8 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense (serves, trains) | ssm (rwkv6,
-                                 # trains) | mamba (mamba2, trains)
+    family: str                  # dense | ssm (rwkv6) | mamba (mamba2);
+                                 # each serves and trains
     n_layers: int
     d_model: int
     n_heads: int

@@ -7,6 +7,12 @@ the best-effort ladder (port of ``repro/launch/serve.py``).
 runs qwen3-8b at its published widths with random weights on the CUDA
 device; ``--smoke`` serves the reduced config and ``--device cpu`` runs
 on the CPU (the kernel path then uses the kernels' plain versions).
+``--arch rwkv6-3b`` and ``--arch mamba2-2.7b`` serve the attention-free
+families at every level: their carried state lives in a pool of state
+rows at ``--level 6`` (which also chunks their prompts, parking a slot
+mid-prompt on the NULL row), the contiguous levels feed prompts a token
+per tick whatever ``--prefill-chunk`` says (recorded), and ``--level 7``
+decodes them plainly (no verify step).
 ``--prefill-chunk N`` consumes prompts N tokens per tick; ``--level 7
 --draft smollm-360m`` decodes speculatively (the drafter must share the
 target's vocab at the scale served, so the pair works with ``--smoke``
@@ -107,7 +113,9 @@ def serve_demo(cfg, *, batch_size: int, max_seq: int, n_requests: int,
         "scale_bytes_per_block": (geometry["scale_bytes_per_block"]
                                   if geometry else None),
         "prefill_mode": engine.prefill_mode,
+        "degrade_reason": engine.degrade_reason,
         "spec_mode": engine.spec_mode,
+        "spec_off_reason": engine.spec_off_reason,
         "spec": engine.spec_stats,
     }
 

@@ -1,5 +1,5 @@
-"""Mamba-2 (SSD) block and the pure-SSD language model (port of the
-training half of ``repro/models/mamba2.py``).
+"""Mamba-2 (SSD) block and the pure-SSD language model (port of
+``repro/models/mamba2.py``): the training loss and the serving steps.
 
 Shapes: x (B, S, d_model); inside, d_inner = expand * d_model splits into
 H = d_inner / P heads of dim P; the state is N = ssm_state wide; one
@@ -19,8 +19,17 @@ Layer params are stacked on a leading L axis as in the reference; its
 config's remat policy (under "full" B5 launches twice a layer a step).
 ``lm_loss`` casts the float32 masters to the compute dtype once at its
 entry, except ``A_log`` and ``dt_bias``, which the reference reads in
-float32.  Decode, the cache and state pool, and prefill wait for ROADMAP
-A11 (rest).
+float32 (``init`` keeps those two in float32 whatever the dtype).
+
+Serving carries, per layer, the causal conv's last K-1 inputs (``conv``)
+and the SSM state (``ssm``, (H, P, N)), both in the cache dtype (bf16 by
+default, as in the reference).  The decode step is the single-step
+update in plain torch (no kernel, as in the reference) with the
+reference's rounding sites: the state is read into f32, ``ssm * decay +
+upd`` and the ``C`` contraction run there, and the new state is rounded
+back to the cache dtype every step.  The paged step (``model_zoo``)
+runs the decode body on the slots' state rows and the chunked prefill
+over the chunk (both in ``models/scan_prefill``).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from repro_torch.models.layers import (PDef, chunked_cross_entropy,
                                        init_params, rms_norm, rms_norm_defs,
                                        stack_defs)
 from repro_torch.models.remat import resolve_policy, wrap_layer_body
+from repro_torch.models.scan_prefill import batch_axes_of, scan_prefill
 from repro_torch.models.transformer import (compute_dtype, layer_params,
                                             padded_vocab)
 
@@ -182,9 +192,14 @@ def init(cfg: ArchConfig, generator: torch.Generator,
          device: torch.device, dtype=None) -> dict:
     """Random weights drawn on ``device`` from ``generator`` in ``dtype``
     (default the compute dtype; training passes float32 for its
-    masters)."""
-    return init_params(model_defs(cfg), generator, device,
-                       dtype or compute_dtype(cfg))
+    masters), but ``A_log`` and ``dt_bias`` in float32, as the reference
+    reads them."""
+    params = init_params(model_defs(cfg), generator, device,
+                         dtype or compute_dtype(cfg))
+    layers = params["layers"]
+    for k in _F32_LEAVES:
+        layers[k] = layers[k].float()
+    return params
 
 
 def cast_params(cfg: ArchConfig, params: dict) -> dict:
@@ -223,19 +238,125 @@ def lm_loss(cfg: ArchConfig, params, batch):
 
 
 # ---------------------------------------------------------------------------
-# Decode, cache and prefill: not ported yet.
+# Serving: the single-token step and the carried state (conv + ssm)
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str):
-    def raise_(*args, **kwargs):
-        raise NotImplementedError(
-            f"mamba2 {what} is not ported yet (ROADMAP A11, rest)")
-    raise_.__name__ = what
-    return raise_
+def mamba2_state_spec(batch, d, *, expand=2, head_dim=64, state=64,
+                      conv_width=4, dtype=torch.bfloat16) -> dict:
+    """{name: (shape, dtype)} of one block's decode state."""
+    d_in = expand * d
+    return {"conv": ((batch, conv_width - 1, d_in + 2 * state), dtype),
+            "ssm": ((batch, d_in // head_dim, head_dim, state), dtype)}
 
 
-mamba2_decode = _not_ported("mamba2_decode")
-cache_spec = _not_ported("cache_spec")
-decode_step = _not_ported("decode_step")
-paged_decode_step = _not_ported("paged_decode_step")
-prefill_step = _not_ported("prefill_step")
+def mamba2_init_state(batch, d, *, device, expand=2, head_dim=64, state=64,
+                      conv_width=4, dtype=torch.bfloat16) -> dict:
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in mamba2_state_spec(
+                batch, d, expand=expand, head_dim=head_dim, state=state,
+                conv_width=conv_width, dtype=dtype).items()}
+
+
+def mamba2_decode(params, x, cache, *, expand=2, head_dim=64, state=64,
+                  conv_width=4):
+    """Single-token step.  x: (B, 1, d); cache {conv (B, K-1, ch), ssm
+    (B, H, P, N)}.  Returns (out (B, 1, d), new state in the cache's
+    dtypes); the inputs are not written."""
+    B, _, d = x.shape
+    dt_ = x.dtype
+    d_in = expand * d
+    H = d_in // head_dim
+
+    h = rms_norm(x, params["norm"])
+    zxbcdt = h @ params["in_proj"]
+    z, _, _, _, dtr = _split_proj(zxbcdt, d_in, state, H)
+
+    # [x, B, C] are adjacent columns of the projection.
+    xbc_t = zxbcdt[:, 0, d_in: 2 * d_in + 2 * state]          # (B, ch)
+    window = torch.cat([cache["conv"].to(dt_), xbc_t[:, None]], dim=1)
+    conv_out = (torch.einsum("bkc,kc->bc", window, params["conv_w"])
+                + params["conv_b"])
+    xbc = F.silu(conv_out)
+    xs_t = xbc[:, :d_in]
+    B_t = xbc[:, d_in:d_in + state]
+    C_t = xbc[:, d_in + state:]
+
+    dt = F.softplus(dtr[:, 0].float() + params["dt_bias"].float())  # (B,H)
+    A = -torch.exp(params["A_log"].float())
+    decay = torch.exp(dt * A)
+
+    xh = xs_t.reshape(B, H, head_dim)
+    # The reference's einsums "bhp,bn,bh->bhpn" and "bhpn,bn->bhp", as
+    # broadcasts and a batched product: (x dt) B in that order, as XLA
+    # computes it, and no per-call contraction-path search on the host.
+    upd = ((xh.float() * dt[:, :, None])[..., None]
+           * B_t.float()[:, None, None, :])
+    ssm = cache["ssm"].float() * decay[:, :, None, None] + upd
+    y = (ssm @ C_t.float()[:, None, :, None])[..., 0]
+    y = y.to(dt_) + xh * params["D"][None, :, None]
+    y = rms_norm(y.reshape(B, 1, d_in) * F.silu(z), params["gate_norm"])
+    out = y @ params["out_proj"]
+    return out, {"conv": window[:, 1:].to(cache["conv"].dtype),
+                 "ssm": ssm.to(cache["ssm"].dtype)}
+
+
+def cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16) -> dict:
+    """{name: (shape, dtype)}: ``conv`` (L, B, K-1, ch) and ``ssm`` (L,
+    B, H, P, N), both in the cache dtype.  ``max_seq`` is unused (the
+    state does not grow) but kept for API parity."""
+    per = mamba2_state_spec(batch, cfg.d_model, dtype=dtype,
+                            **_block_kw(cfg))
+    return {name: ((cfg.n_layers,) + shape, dt)
+            for name, (shape, dt) in per.items()}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device,
+               dtype=torch.bfloat16) -> dict:
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in cache_spec(cfg, batch, max_seq,
+                                                dtype).items()}
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    return {"conv": ("layers", "batch", None, "mlp"),
+            "ssm": ("layers", "batch", "heads", None, None)}
+
+
+def _decode(cfg: ArchConfig, params, cache, tokens, out) -> torch.Tensor:
+    """The single-token decode body: reads layer ``l`` of ``cache`` and
+    writes its new state into layer ``l`` of ``out`` (``cache`` itself
+    for an in-place step).  Returns the logits (B, vocab_padded) f32."""
+    _check_family(cfg)
+    h = params["embedding"][tokens.long()]                    # (B, 1, d)
+    for l in range(cfg.n_layers):
+        o, new = mamba2_decode(layer_params(params, l), h,
+                               {name: leaf[l] for name, leaf in cache.items()},
+                               **_block_kw(cfg))
+        h = h + o
+        for name, leaf in out.items():
+            leaf[l].copy_(new[name])
+    h = rms_norm(h, params["final_norm"])
+    return (h[:, 0] @ params["lm_head"]).float()
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, positions):
+    """One decode step.  tokens (B, 1); ``positions`` unused (the state
+    carries the history) but kept for API parity.  The cache is written
+    in place.  Returns (logits (B, vocab_padded) f32, cache)."""
+    return _decode(cfg, params, cache, tokens, cache), cache
+
+
+
+def prefill_step(cfg: ArchConfig, params, cache, tokens, start, last):
+    """Chunked prefill by running the decode body over the chunk, each
+    slot frozen past ``last`` (``models/scan_prefill``).  The cache is
+    written in place.  Returns (logits (B, vocab_padded) at the ``last``
+    rows, cache)."""
+    def step(c, tok, pos):
+        new = {name: torch.empty_like(leaf) for name, leaf in c.items()}
+        return _decode(cfg, params, c, tok, new), new
+
+    return scan_prefill(step, cache, tokens, start, last,
+                        logits_width=padded_vocab(cfg.vocab),
+                        batch_axes=batch_axes_of(cache_axes(cfg)))

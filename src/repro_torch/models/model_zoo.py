@@ -3,11 +3,13 @@
 
 ``get_model(cfg, device=None)`` returns a ``ModelAPI`` whose functions
 close over the arch config and the device (``None`` = CUDA).  Three
-families are ported.  The dense family has the training loss and every
-serving hook: decode, chunked prefill and speculative verify, each dense
-and paged.  The ssm (rwkv6) and mamba (mamba2) families have the
-training loss; their serving hooks raise, naming ROADMAP A11 (rest).
-``input_specs``/``make_batch`` give a training cell's batch.
+families are ported, each with the training loss and the serving hooks.
+The dense family has decode, chunked prefill and speculative verify,
+each dense and paged.  The ssm (rwkv6) and mamba (mamba2) families carry
+recurrent state: decode, its paged form over state rows and chunked
+prefill, but no paged prefill and no verify step, as in the reference
+(O7 on them decodes plainly).  ``input_specs``/``make_batch`` give a
+training cell's batch.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba2, rwkv_lm, transformer
+from repro_torch.models import mamba2, rwkv_lm, scan_prefill, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +38,17 @@ class ModelAPI:
     cache_spec: Callable      # (batch, max_seq) -> {name: (shape, dtype)}
     init_cache: Callable      # (batch, max_seq) -> cache on ``device``
     cache_axes: Callable      # () -> logical-axes tree matching cache_spec
-    # (params, pool, tables, tokens, positions) -> (logits, pool): the
-    # serving O6 kernel path.
+    # True for families whose decode cache is a CARRY (the rwkv wkv
+    # state and token shifts, the mamba conv/ssm state) rather than a
+    # position-addressed KV log.  The contiguous layout cannot park a
+    # carried-state slot mid-prompt (a pad feed would fold into the
+    # carry), so it refuses chunked prefill for these families; the
+    # paged layout parks them on the NULL state row instead.
+    carries_state: bool = False
+    # (params, pool, *extras, tokens, positions) -> (logits, pool): the
+    # serving O6 kernel path.  ``extras`` is what the paged manager's
+    # ``step_extras()`` emits: (tables,) for the dense family, (rows,)
+    # for the recurrent ones.
     paged_decode_step: Callable = None
     # Chunked prefill (params, cache, tokens (B, C), start (B,), last
     # (B,)) -> (logits, cache): C prompt tokens per call, logits at each
@@ -55,18 +66,10 @@ class ModelAPI:
     paged_verify_step: Callable = None
 
 
-def _serving_not_ported(cfg: ArchConfig, hook: str):
-    def raise_(*args, **kwargs):
-        raise NotImplementedError(
-            f"{cfg.name}: {hook} of the {cfg.family!r} family is not "
-            f"ported yet (ROADMAP A11, rest)")
-    return raise_
-
-
 def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
-    if cfg.family in _TRAINING_ONLY:
-        return _training_only_model(cfg, resolve_device(device),
-                                    _TRAINING_ONLY[cfg.family])
+    if cfg.family in _RECURRENT:
+        return _recurrent_model(cfg, resolve_device(device),
+                                _RECURRENT[cfg.family])
     if cfg.family != "dense" or cfg.n_experts:
         raise NotImplementedError(
             f"family {cfg.family!r} (n_experts {cfg.n_experts}) is not "
@@ -106,17 +109,17 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
     )
 
 
-# The families the port trains but does not serve yet: family -> module.
-_TRAINING_ONLY = {"ssm": rwkv_lm, "mamba": mamba2}
+# The families whose decode cache is a carried state: family -> module.
+_RECURRENT = {"ssm": rwkv_lm, "mamba": mamba2}
 
 
-def _training_only_model(cfg: ArchConfig, dev: torch.device,
-                         mod) -> ModelAPI:
-    """rwkv6, mamba2: the training loss only; every serving hook
-    raises."""
-    hooks = ("decode_step", "cache_spec", "init_cache", "cache_axes",
-             "paged_decode_step", "prefill_step", "paged_prefill_step",
-             "verify_step", "paged_verify_step")
+def _recurrent_model(cfg: ArchConfig, dev: torch.device, mod) -> ModelAPI:
+    """rwkv6, mamba2: decode, its paged form over state rows (``extras``
+    = (rows,)) and chunked prefill by running the decode body over the
+    chunk.  No paged prefill and no verify step, as in the reference: a
+    carried state cannot roll rejected drafts back by truncating a
+    length, so the engine's O7 decodes plainly (``spec_mode`` "off")."""
+    batch_axes = scan_prefill.batch_axes_of(mod.cache_axes(cfg))
     return ModelAPI(
         cfg=cfg,
         device=dev,
@@ -124,7 +127,23 @@ def _training_only_model(cfg: ArchConfig, dev: torch.device,
                                                     dtype),
         defs=lambda: mod.model_defs(cfg),
         loss=lambda params, batch: mod.lm_loss(cfg, params, batch),
-        **{h: _serving_not_ported(cfg, h) for h in hooks})
+        decode_step=lambda params, cache, tokens, positions:
+            mod.decode_step(cfg, params, cache, tokens, positions),
+        cache_spec=lambda batch, max_seq: mod.cache_spec(cfg, batch, max_seq),
+        init_cache=lambda batch, max_seq:
+            mod.init_cache(cfg, batch, max_seq, device=dev),
+        cache_axes=lambda: mod.cache_axes(cfg),
+        carries_state=True,
+        # Recurrent state is never quantized: ``scales``/``kv_dtype``
+        # only match the dense family's signature.
+        paged_decode_step=lambda params, pool, rows, tokens, positions,
+        scales=None, kv_dtype="bf16": scan_prefill.row_decode_step(
+            lambda cache, tok, pos: mod.decode_step(cfg, params, cache, tok,
+                                                    pos),
+            pool, rows, tokens, positions, batch_axes=batch_axes),
+        prefill_step=lambda params, cache, tokens, start, last:
+            mod.prefill_step(cfg, params, cache, tokens, start, last),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ runs in chunked form for training through kernel B4
 reference has it, for the tests; B4 computes in f32 and rounds once, so
 the two agree tightly in f32 compute and to a tolerance in bf16.  The
 log-decay is clamped to [-LW_CLAMP, 0] so chunk-local exponents stay in
-f32 range.  Decode (the single-step update) waits for ROADMAP A11
-(rest).
+f32 range.  Decode (``decode=True``) runs the single-step update
+``wkv_sequential`` in plain torch, as the reference does: serving
+reaches no kernel.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def rwkv6_channel_mix_defs(d: int, d_ff: int) -> dict:
 def _token_shift(x, x_prev_token=None):
     """Shift right by one along seq; first slot filled by x_prev_token."""
     first = (torch.zeros_like(x[:, :1]) if x_prev_token is None
-             else x_prev_token[:, None])
+             else x_prev_token[:, None].to(x.dtype))
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
@@ -117,16 +118,19 @@ def wkv_chunked(r, k, v, lw, u, *, chunk: int, init_state=None):
 
 
 def wkv_sequential(r, k, v, lw, u, *, init_state=None):
-    """Step-by-step form: the reference's branch for sequences that the
-    chunk does not divide.  Returns (y in r's dtype, f32 state)."""
+    """Step-by-step form: the decode step's update, and the reference's
+    branch for sequences that the chunk does not divide.  Returns (y in
+    r's dtype, f32 state)."""
     B, S, H, N = r.shape
     state = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
              if init_state is None else init_state)
     ys = []
     for t in range(S):
-        kv = torch.einsum("bhc,bhn->bhcn", k[:, t], v[:, t]).float()
-        ys.append(torch.einsum("bhc,bhcn->bhn", r[:, t].float(),
-                               state + u[..., None] * kv))
+        # The reference's einsums "bhc,bhn->bhcn" (an outer product) and
+        # "bhc,bhcn->bhn" (a batched product), without einsum's parsing.
+        kv = (k[:, t, :, :, None] * v[:, t, :, None, :]).float()
+        ys.append((r[:, t, :, None, :].float()
+                   @ (state + u[..., None] * kv))[:, :, 0])
         state = state * torch.exp(lw[:, t].float())[..., None] + kv
     return torch.stack(ys, dim=1).to(r.dtype), state
 
@@ -134,10 +138,9 @@ def wkv_sequential(r, k, v, lw, u, *, init_state=None):
 def time_mix_apply(params, x, *, head_dim=64, chunk=128, state=None,
                    x_prev=None, decode=False):
     """x: (B, S, d).  Returns (out, (final_wkv_state, last_token)).
-    ``params`` are in x's dtype (``rwkv_lm.lm_loss`` casts them once)."""
-    if decode:
-        raise NotImplementedError(
-            "rwkv6 decode is not ported yet (ROADMAP A11, rest)")
+    ``params`` are in x's dtype (``rwkv_lm.lm_loss`` casts them once).
+    ``decode`` runs the single-step update from ``state`` (f32) and
+    ``x_prev`` (the cache's token shift), never B4."""
     B, S, d = x.shape
     H = d // head_dim
 
@@ -157,7 +160,7 @@ def time_mix_apply(params, x, *, head_dim=64, chunk=128, state=None,
     u = params["bonus_u"]
 
     ck = min(chunk, S)
-    if S % ck != 0:
+    if decode or S % ck != 0:
         y, new_state = wkv_sequential(r, k, v, lwh, u, init_state=state)
     else:
         y, new_state = wkv_ops.wkv(r, k, v, lwh, u, init_state=state,

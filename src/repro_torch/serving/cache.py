@@ -45,10 +45,14 @@ class CacheManager:
         reservation the paged manager's block pool replaces)."""
         return self.B * self.max_seq
 
-    def step_extras(self) -> tuple:
+    def step_extras(self, parked=None) -> tuple:
         """Per-tick step inputs beyond (params, cache, tokens, positions,
         seeds): none for the contiguous layout (the paged manager returns
-        its block tables) — keeps the engine's dispatch layout-blind."""
+        its block tables and state rows) — keeps the engine's dispatch
+        layout-blind.  ``parked`` is the paged manager's; the contiguous
+        layout never chunks a carried-state family, so it parks
+        nothing."""
+        del parked
         return ()
 
     def insert_slot(self, i: int, state) -> None:

@@ -38,10 +38,12 @@ The rungs, each a real, independently toggleable stage keyed by
                          tokens land per slot per tick.  Rollback is
                          free: rejected writes sit beyond the slot's
                          frontier (rewritten before an unmasked read) or
-                         in the NULL block.  No drafter, ``draft_k == 0``
-                         or a stochastic sampler leave the engine
-                         decoding plainly, recorded in ``spec_mode``
-                         ("draft" / "off").  The speculative tick
+                         in the NULL block.  No drafter, ``draft_k == 0``,
+                         a stochastic sampler or a family with no verify
+                         step (rwkv6, mamba2: a carried state cannot roll
+                         back) leave the engine decoding plainly,
+                         recorded in ``spec_mode`` ("draft" / "off"; the
+                         last two say why in ``spec_off_reason``).  The speculative tick
                          replaces the O4 double-buffered schedule
                          (acceptance must be known before the next window
                          is drafted).
@@ -65,10 +67,12 @@ Prefill has two implementations:
 The phases are also exposed directly (the JetStream-style serving API):
 ``prefill(prompt)`` consumes a prompt on a standalone batch-1 cache of
 the engine's layout (a private pool on the paged layout) through the
-prefill step admission runs and samples the first token,
+prefill step admission runs and samples the first token — token by
+token through the batch-1 decode step for a carried-state family —
 ``insert(result)`` installs that state into a free slot (scattering it
-through a freshly reserved block table under the paged layout), and
-``generate()`` drains the decode loop.
+through a freshly reserved block table, or copying it into the slot's
+state row, under the paged layout), and ``generate()`` drains the
+decode loop.
 
 Admission, slot bookkeeping and retirement live in ``scheduler``; the
 engine is only the tick loop that wires scheduler, cache manager, sampler
@@ -181,6 +185,9 @@ class DecodeEngine:
                 model, self.sampler_cfg, self.cache_mgr)
         self.prefill_mode = ("chunked" if self._prefill_fn is not None
                              else "token")
+        # A requested capability that fell back says why (chunked prefill
+        # of a carried-state family on the contiguous layout).
+        self.degrade_reason = self.layout.degrade_reason
 
         # O7: speculative decoding, active only when every piece is in
         # place — the rung, a drafter (by name in the config or passed
@@ -190,6 +197,7 @@ class DecodeEngine:
         # raises (``model_zoo.compatible_drafter``): an operator error.
         self._spec = False
         self.spec_mode = "off"
+        self.spec_off_reason = None       # why a wanted O7 decodes plainly
         self._draft_k = max(int(self.config.draft_k), 0)
         self._verify_fn = None
         self.spec_drafted = self.spec_accepted = 0
@@ -201,13 +209,18 @@ class DecodeEngine:
                        and (draft_model is not None
                             or bool(self.config.draft_model))
                        and self._draft_k > 0)
-        if spec_wanted and not self.sampler_cfg.stochastic:
+        if spec_wanted and self.sampler_cfg.stochastic:
+            self.spec_off_reason = "a stochastic sampler"
+        elif spec_wanted:
             self._verify_fn = self.layout.make_verify_step(
                 model, self.sampler_cfg, self.cache_mgr)
             if self._verify_fn is not None:
                 self._wire_drafter(draft_model, draft_params)
                 self._spec = True
                 self.spec_mode = "draft"
+            else:
+                self.spec_off_reason = (
+                    f"family {model.cfg.family!r} has no verify step")
 
     def _wire_drafter(self, api, params):
         """Build (or adopt) the drafter: a small zoo model with its own
@@ -302,24 +315,19 @@ class DecodeEngine:
         :meth:`generate` decodes from there, with the tokens of
         submitting the same request.  The state is a batch-1 dense cache
         zeroed past the prompt (a padded final chunk writes its pad rows
-        there), so a narrow pool's insert quantizes the prompt alone."""
+        there), so a narrow pool's insert quantizes the prompt alone.
+
+        A family that carries recurrent state prefills token by token,
+        as the reference's per-token path does: the batch-1 decode step
+        (the O0/O1 loop's) on a batch-1 contiguous cache, the first token
+        sampled from the last prompt token's logits."""
+        if self.model.carries_state:
+            return self._prefill_per_token(prompt, max_new_tokens, eos_id)
         if self.model.prefill_step is None:
             raise NotImplementedError(
                 f"prefill of the {self.model.cfg.family!r} family is not "
                 f"ported (ROADMAP A11)")
-        req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
-                      eos_id=eos_id)
-        req.rid = self.scheduler.new_rid()
-        if req.n_prompt < 1:
-            raise ValueError(f"req {req.rid}: empty prompt")
-        if req.max_new_tokens < 1:
-            raise ValueError(
-                f"req {req.rid}: prefill needs max_new_tokens >= 1")
-        if req.n_prompt + req.max_new_tokens > self.max_seq:
-            raise ValueError(
-                f"req {req.rid}: prompt ({req.n_prompt}) + max_new_tokens "
-                f"({req.max_new_tokens}) exceeds engine max_seq "
-                f"({self.max_seq})")
+        req = self._prefill_request(prompt, max_new_tokens, eos_id)
         cfg = self.sampler_cfg
         P = req.n_prompt
         seed = cfg.request_seed(req.rid, 0) if cfg.stochastic else 0
@@ -340,6 +348,41 @@ class DecodeEngine:
                                self.max_seq - P).zero_()
         return PrefillResult(request=req, first_token=int(tok_dev),
                              kv_state=state, length=P)
+
+    def _prefill_per_token(self, prompt, max_new_tokens, eos_id):
+        """The carried-state families' PREFILL: one batch-1 decode step
+        per prompt token on a fresh batch-1 contiguous cache."""
+        req = self._prefill_request(prompt, max_new_tokens, eos_id)
+        cfg = self.sampler_cfg
+        shared = shared_steps(self.model, cfg)
+        cache = self.model.init_cache(1, self.max_seq)
+        for p, tok in enumerate(req.prompt):
+            logits, cache = shared["single"](self.params, cache, tok, p, 0)
+        if cfg.stochastic:
+            first = int(shared["sample"](logits[None],
+                                         [cfg.request_seed(req.rid, 0)])[0])
+        else:
+            first = int(logits.cpu().numpy().argmax())
+        return PrefillResult(request=req, first_token=first, kv_state=cache,
+                             length=req.n_prompt)
+
+    def _prefill_request(self, prompt, max_new_tokens, eos_id) -> Request:
+        """The request a PREFILL serves, with its rid, checked against
+        the engine's horizon."""
+        req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
+                      eos_id=eos_id)
+        req.rid = self.scheduler.new_rid()
+        if req.n_prompt < 1:
+            raise ValueError(f"req {req.rid}: empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"req {req.rid}: prefill needs max_new_tokens >= 1")
+        if req.n_prompt + req.max_new_tokens > self.max_seq:
+            raise ValueError(
+                f"req {req.rid}: prompt ({req.n_prompt}) + max_new_tokens "
+                f"({req.max_new_tokens}) exceeds engine max_seq "
+                f"({self.max_seq})")
+        return req
 
     def insert(self, result: PrefillResult,
                slot: Optional[int] = None) -> int:
@@ -391,15 +434,19 @@ class DecodeEngine:
         # device may still read this tick's inputs.
         return torch.tensor(arr, device=self.device)
 
-    def _dispatch(self, tokens_np, positions_np, seeds_np):
+    def _dispatch(self, tokens_np, positions_np, seeds_np, parked=None):
         """Run the batched fused step; returns the sampled tokens (still
         on the device, possibly still computing).  The manager's
         ``step_extras()`` supplies layout-specific inputs (the paged
-        manager's cached device block tables), keeping this path
-        layout-blind.  The cache is updated in place."""
+        manager's cached device block tables and state rows), keeping
+        this path layout-blind.  ``parked`` names the slots mid-chunked-
+        prefill this tick: a manager with carried state aliases them to
+        the NULL state row, so the batched feed cannot advance their real
+        state (their prompt advances only through ``_prefill_tick``).
+        The cache is updated in place."""
         toks_dev, new_cache = self._step_fn(
             self.params, self.cache_mgr.cache,
-            *self.cache_mgr.step_extras(),
+            *self.cache_mgr.step_extras(parked=parked),
             self._host_to_device(tokens_np),
             self._host_to_device(positions_np), seeds_np)
         self.cache_mgr.cache = new_cache
@@ -657,8 +704,9 @@ class DecodeEngine:
         # Chunked prefill: one prompt chunk (head of the prefill queue)
         # dispatches before the batched step; slots still consuming
         # their prompt are PARKED in that step — fed their real next
-        # prompt token (a later chunk rewrites that write) but advanced
-        # only by chunks.
+        # prompt token (a later chunk rewrites that KV write; a carried
+        # state is aliased to the NULL row) but advanced only by chunks.
+        parked = None
         if self._prefill_fn is not None:
             pf = sched.prefill_queue()
             if pf:
@@ -668,6 +716,7 @@ class DecodeEngine:
                    if slots[i].pos >= slots[i].req.n_prompt]
             if not gen:
                 return True                     # a prefill-only tick
+            parked = [i for i in active if i not in set(gen)]
         else:
             gen = active
 
@@ -677,7 +726,8 @@ class DecodeEngine:
         seeds_np = ([cfg.request_seed(s.req.rid, len(s.req.generated))
                      if s.active else 0 for s in slots]
                     if cfg.stochastic else [0] * self.B)
-        toks = self._dispatch(tokens_np, positions_np, seeds_np).cpu()
+        toks = self._dispatch(tokens_np, positions_np, seeds_np,
+                              parked=parked).cpu()
         for i in gen:
             sched.advance(i, int(toks[i]))
         return True
@@ -718,18 +768,21 @@ class DecodeEngine:
                 buf.seeds[i] = cfg.request_seed(
                     s.req.rid, len(s.req.generated))
 
-        toks_dev = self._dispatch(buf.tokens, buf.positions,
-                                  buf.seeds.tolist())
-
-        # -- bookkeeping for the next tick, under the running step -----------
-        # Chunked prefill rides the overlap seam: the chunk dispatches
-        # behind the decode step (prefilling slots were parked in it),
-        # and tick_advance skips the prefilling slots, whose positions
-        # move through the chunk's own bookkeeping.
-        gen = active
+        # Chunked prefill rides the overlap seam: prefilling slots are
+        # parked in the decode step (a carried state on the NULL row),
+        # the chunk dispatches behind it, and tick_advance skips them —
+        # their positions move through the chunk's own bookkeeping.
+        gen, parked = active, None
         if self._prefill_fn is not None:
             gen = [i for i in active
                    if sched.slots[i].pos >= sched.slots[i].req.n_prompt]
+            parked = [i for i in active if i not in set(gen)]
+
+        toks_dev = self._dispatch(buf.tokens, buf.positions,
+                                  buf.seeds.tolist(), parked=parked)
+
+        # -- bookkeeping for the next tick, under the running step -----------
+        if self._prefill_fn is not None:
             pf = sched.prefill_queue()
             if pf:
                 self._prefill_tick(pf[0])

@@ -12,7 +12,11 @@ again:
     ``decode_step`` the contiguous rungs run and scatters back the one
     block it wrote; ``paged_attn="kernel"`` runs the model's
     ``paged_decode_step`` — the CUDA paged-decode kernel on the raw pool,
-    no dense view at all.  ``attn_impl`` records what was built.
+    no dense view at all.  ``attn_impl`` records what was built.  A
+    recurrent family's carried state lives in a pool of state rows
+    (``state_impl="rows"``): the gather step gathers the slots' rows, the
+    kernel step hands the rows to the model's paged step, which does the
+    same (these families have no attention to run a kernel on).
 
 The layout owns cache-manager construction, scheduler wiring (the block
 pool's admission gates) and the three steps the engine dispatches: the
@@ -34,11 +38,20 @@ narrow pools by design — the gather path attends the current token
 unquantized, the kernel path reads it re-quantized — so each owes the
 dtype's tolerance contract against the O5 tokens
 (``kvquant.tolerance_contract``), not bit-identity with the other.
+State rows are never quantized.
+
+The contiguous layout cannot chunk a carried-state family's prefill: a
+slot parked mid-prompt in the batched tick would fold its pad feed into
+the carry, and there is no row map to park it through.  It degrades to
+token-by-token prefill and records why in ``degrade_reason``; the paged
+layout chunks these families by parking the slot on the NULL state row
+(``PagedCacheManager.step_extras(parked=...)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import torch
 
@@ -46,6 +59,8 @@ from repro_torch.serving import kvquant
 from repro_torch.serving.cache import CacheManager
 from repro_torch.serving.paged import PagedCacheManager, split_cache
 from repro_torch.serving.sampler import make_sampler
+
+log = logging.getLogger(__name__)
 
 
 def make_fused(model, sample):
@@ -112,21 +127,50 @@ def shared_steps(model, sampler_cfg) -> dict:
             "prefill": _prefill, "verify": _verify, "sample": sample}
 
 
-def make_paged_fused(model, sample, manager):
-    """The paged GATHER step: block-table gather -> the SAME dense
-    ``decode_step`` the contiguous rungs run -> single-block scatter back
-    into the pool (in place).  The dense view is identical to the
-    contiguous cache at every unmasked position, so greedy tokens cannot
-    drift from the contiguous path (a narrow pool: up to its dtype's
-    tolerance contract)."""
-    plan = manager.plan
+def _split_extras(manager, extras):
+    """(tables, rows) of a paged step's extras, in the order the
+    manager's ``step_extras()`` emits them: tables iff it has KV leaves,
+    rows iff it has state leaves (``None`` for what it lacks)."""
+    it = iter(extras)
+    tables = next(it) if manager.has_blocks else None
+    rows = next(it) if manager.state is not None else None
+    return tables, rows
 
-    def _fused(params, cache, tables, tokens, positions, seeds):
+
+def _gather_view(manager, pool, scales, tables, rows) -> dict:
+    """The dense view of the slots in ``tables`` / ``rows``: KV blocks
+    through the tables (dequantized from a narrow pool), state through
+    the rows."""
+    dense = {}
+    if tables is not None:
+        dense.update(manager.plan.gather(pool, tables, scales))
+    if rows is not None:
+        dense.update(manager.state_plan.gather(pool, rows))
+    return dense
+
+
+def make_paged_fused(model, sample, manager):
+    """The paged GATHER step: block-table gather (KV leaves) and row
+    gather (state leaves) -> the SAME dense ``decode_step`` the
+    contiguous rungs run -> row scatter and single-block scatter back
+    into the pools (in place).  The dense view is identical to the
+    contiguous cache at every unmasked position and the rows hold the
+    exact carried state, so greedy tokens cannot drift from the
+    contiguous path (a narrow pool: up to its dtype's tolerance
+    contract)."""
+    plan, splan = manager.plan, manager.state_plan
+
+    def _fused(params, cache, *rest):
+        extras, (tokens, positions, seeds) = rest[:-3], rest[-3:]
+        tables, rows = _split_extras(manager, extras)
         pool, scales = split_cache(cache, plan.quantized)
-        dense = plan.gather(pool, tables, scales)
+        dense = _gather_view(manager, pool, scales, tables, rows)
         logits, dense = model.decode_step(params, dense, tokens, positions)
         toks = sample(logits, seeds)
-        plan.scatter(pool, tables, dense, positions, scales)
+        if rows is not None:
+            splan.scatter(pool, rows, dense)
+        if tables is not None:
+            plan.scatter(pool, tables, dense, positions, scales)
         return toks, cache
 
     return _fused
@@ -134,15 +178,16 @@ def make_paged_fused(model, sample, manager):
 
 def make_paged_kernel_fused(model, sample, manager):
     """The paged KERNEL step (``paged_attn="kernel"``): the model's
-    ``paged_decode_step`` consumes the pool + tables + positions
-    directly; each layer appends its token's K/V into the active block in
-    place and the paged-decode kernel reads only the blocks each slot
-    references."""
+    ``paged_decode_step`` consumes the pool + the manager's extras
+    (tables and/or state rows) + positions directly; each attention layer
+    appends its token's K/V into the active block in place and the
+    paged-decode kernel reads only the blocks each slot references."""
     quantized, kv_dtype = manager.plan.quantized, manager.kv_dtype
 
-    def _fused(params, cache, tables, tokens, positions, seeds):
+    def _fused(params, cache, *rest):
+        extras, (tokens, positions, seeds) = rest[:-3], rest[-3:]
         pool, scales = split_cache(cache, quantized)
-        logits = model.paged_decode_step(params, pool, tables, tokens,
+        logits = model.paged_decode_step(params, pool, *extras, tokens,
                                          positions, scales=scales,
                                          kv_dtype=kv_dtype)[0]
         return sample(logits, seeds), cache
@@ -163,8 +208,9 @@ class KVLayout:
     ``make_prefill_step`` — the single-slot prefill-chunk step
                          ``(params, cache, *extras, islot, tokens (1, C),
                          start (1,), last (1,), seeds) -> (token, cache)``,
-                         or None when the model has no prefill step (the
-                         engine then feeds prompts one token per tick).
+                         or None when the model has no prefill step or
+                         the layout cannot chunk its family (the engine
+                         then feeds prompts one token per tick).
     ``make_verify_step`` — the speculative-verify step ``(params, cache,
                          *extras, tokens (B, C), start (B,)) -> (greedy
                          tokens (B, C), cache)``, or None when the model
@@ -180,10 +226,18 @@ class KVLayout:
                          token are those its admission would compute.
     ``attn_impl``      — the attention implementation the built steps use
                          ("gather"/"kernel"; None on the contiguous layout).
+    ``state_impl``     — how carried state moves: "rows" when the family's
+                         state leaves live in the paged row pool, else
+                         "none".
+    ``degrade_reason`` — why a requested capability fell back (chunked
+                         prefill of a carried-state family on the
+                         contiguous layout), or None.
     """
 
     name: str = "?"
     attn_impl = None
+    state_impl = "none"
+    degrade_reason = None
 
     def build_manager(self, model, batch_size, max_seq, config):
         raise NotImplementedError
@@ -209,6 +263,20 @@ class ContiguousLayout(KVLayout):
     def make_prefill_step(self, model, sampler_cfg, manager):
         if model.prefill_step is None:
             return None
+        if model.carries_state:
+            # A chunking engine parks mid-prompt slots inside the batched
+            # tick by feeding them their next prompt token: a KV write is
+            # rewritten by the next chunk, but a carried state would
+            # advance twice, and this layout has no row map to park the
+            # slot through.
+            self.degrade_reason = (
+                f"prefill_chunk requested but family "
+                f"'{model.cfg.family}' carries recurrent state, which the "
+                f"contiguous layout cannot park mid-prompt; degraded to "
+                f"token-by-token prefill (the paged layout (level>=6) "
+                f"chunks this family via NULL-row parking)")
+            log.warning("%s", self.degrade_reason)
+            return None
         return shared_steps(model, sampler_cfg)["prefill"]
 
     def make_verify_step(self, model, sampler_cfg, manager):
@@ -227,8 +295,11 @@ class PagedLayout(KVLayout):
     """Pooled KV-block scratchpad with per-request block tables (O6).
 
     ``paged_attn`` selects the steps' attention implementation and is
-    recorded as ``attn_impl`` (every model family of the port has paged
-    decode, prefill and verify steps, so nothing degrades).  ``kv_dtype``
+    recorded as ``attn_impl``.  The dense family has paged decode,
+    prefill and verify steps; the recurrent families have a paged decode
+    step over state rows and no attention, so their prefill chunk is the
+    row-gather step under either ``paged_attn`` (``prefill_impl`` records
+    which prefill was built) and they have no verify step.  ``kv_dtype``
     is the pool's stored dtype: "bf16" (bit-identical ladder), or "int8"
     / "fp8" words with per-block scales, whose rung owes the dtype's
     tolerance contract (``serving.kvquant.tolerance_contract``).
@@ -243,13 +314,16 @@ class PagedLayout(KVLayout):
                 f"(got {paged_attn!r})")
         self.attn_impl = paged_attn
         self.kv_dtype = kvquant.validate_kv_dtype(kv_dtype)
+        self.prefill_impl = None
 
     def build_manager(self, model, batch_size, max_seq, config):
-        return PagedCacheManager(
+        mgr = PagedCacheManager(
             model, batch_size, max_seq,
             block_size=config.kv_block_size,
             pool_blocks=config.kv_pool_blocks,
             kv_dtype=self.kv_dtype)
+        self.state_impl = "rows" if mgr.state is not None else "none"
+        return mgr
 
     def wire_scheduler(self, scheduler, manager) -> None:
         # Admission is gated on free blocks (a request that fits max_seq
@@ -271,15 +345,21 @@ class PagedLayout(KVLayout):
         """The paged prefill chunk of slot ``islot``: ``kernel`` runs the
         model's ``paged_prefill_step`` on the slot's table row (chunk K/V
         scattered straight into its blocks, kernel B2 over the prefix);
-        ``gather`` gathers the slot's dense view, runs the same dense
-        ``prefill_step`` the contiguous rungs run and scatters every
-        block of the view back."""
+        ``gather`` gathers the slot's dense view — its blocks through its
+        table row, its state through its state row — runs the same dense
+        ``prefill_step`` the contiguous rungs run and scatters the state
+        row and every block of the view back.  A family without a paged
+        prefill step (the recurrent ones) takes the gather chunk under
+        either ``paged_attn``; ``prefill_impl`` records the one built."""
         if model.prefill_step is None:
             return None
         sample = make_sampler(sampler_cfg)
-        plan, kv_dtype = manager.plan, manager.kv_dtype
+        plan, splan, kv_dtype = manager.plan, manager.state_plan, \
+            manager.kv_dtype
 
-        if self.attn_impl == "kernel":
+        if self.attn_impl == "kernel" and model.paged_prefill_step is not None:
+            self.prefill_impl = "kernel"
+
             def _prefill(params, cache, tables, islot, tokens, start, last,
                          seeds):
                 pool, scales = split_cache(cache, plan.quantized)
@@ -289,17 +369,23 @@ class PagedLayout(KVLayout):
                 return sample(logits, seeds)[0], cache
             return _prefill
 
+        self.prefill_impl = "gather"
         dense_prefill = shared_steps(model, sampler_cfg)["prefill"]
 
-        def _prefill(params, cache, tables, islot, tokens, start, last,
-                     seeds):
+        def _prefill(params, cache, *rest):
+            extras, (islot, tokens, start, last, seeds) = rest[:-5], rest[-5:]
+            tables, rows = _split_extras(manager, extras)
+            row_t = None if tables is None else tables[islot:islot + 1]
+            row_r = None if rows is None else rows[islot:islot + 1]
             pool, scales = split_cache(cache, plan.quantized)
-            row = tables[islot:islot + 1]
             token, dense = dense_prefill(
-                params, plan.gather(pool, row, scales), 0, tokens, start,
-                last, seeds)
-            plan.scatter_view(pool, row, dense, scales,
-                              lengths=start + tokens.shape[1])
+                params, _gather_view(manager, pool, scales, row_t, row_r), 0,
+                tokens, start, last, seeds)
+            if row_r is not None:
+                splan.scatter(pool, row_r, dense)
+            if row_t is not None:
+                plan.scatter_view(pool, row_t, dense, scales,
+                                  lengths=start + tokens.shape[1])
             return token, cache
         return _prefill
 

@@ -7,8 +7,10 @@ B4 RWKV-6 WKV and B5 Mamba-2 SSD in both bodies — the chunk-parallel
 body otherwise —, B6/B7 tiled matmul, B6 in its three
 bodies — bf16 tiles on wgmma fed by TMA, the f32 rungs with a block per
 tile on 3xTF32 mma.sync, the rest on the CUDA cores) against
-their plain PyTorch versions on the card; and the MachSuite byte kernels
-(aes, kmp, nw) at every level on the card against their oracles.  They carry the ``cuda`` marker and
+their plain PyTorch versions on the card; the MachSuite byte kernels
+(aes, kmp, nw) at every level on the card against their oracles; and the
+recurrent serving steps of rwkv6 and mamba2 (no kernel: the same torch
+ops) on the card against the CPU.  They carry the ``cuda`` marker and
 skip without a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1122,3 +1124,68 @@ def test_machsuite_rest_on_the_card_equal_the_oracle(name):
             else:
                 np.testing.assert_array_equal(out.cpu().numpy(), want,
                                               err_msg=f"{name} O{level}")
+
+
+# A 2-layer cut of the full-width config in f32, on the card and on the
+# CPU: max |dlogit| / max |logit| within this.  The two differ in the
+# GEMMs' summation order (TF32 off), and an element of the bf16-stored
+# state may round to its neighbouring bf16 value on one side.
+RECURRENT_CARD_TOL = 2e-3
+
+
+def _rel(a, b) -> float:
+    return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "mamba2-2.7b"])
+def test_recurrent_decode_and_scan_prefill_on_the_card(arch):
+    """The decode step and the chunked prefill (``scan_prefill``) of a
+    2-layer full-width cut in f32 on the card against the same steps on
+    the CPU, within ``RECURRENT_CARD_TOL``; on the card, the prefill step
+    bitwise equal to C decode steps (each slot's logits at its ``last``
+    row and its state after ``last + 1`` steps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (holds the card against the CPU)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.scan_prefill import batch_axes_of
+    from repro_torch.tree import map_tree
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                              compute_dtype="float32")
+    models = {"cpu": get_model(cfg, device="cpu"), "cuda": get_model(cfg)}
+    params = {"cpu": models["cpu"].init(torch.Generator().manual_seed(0))}
+    params["cuda"] = map_tree(lambda t: t.cuda(), params["cpu"])
+    B, C = 4, 6
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab, (B, C), generator=gen)
+    last = torch.tensor([C - 1, 2, 0, C - 1])
+    start = torch.zeros(B, dtype=torch.long)
+    out = {}
+    for dev, model in models.items():
+        cache = model.init_cache(B, 16)
+        steps = []
+        for j in range(C):
+            lg, cache = model.decode_step(params[dev], cache,
+                                          toks[:, j:j + 1].to(dev),
+                                          (start + j).to(dev))
+            steps.append((lg, {k: v.clone() for k, v in cache.items()}))
+        chunk = model.init_cache(B, 16)
+        sel, chunk = model.prefill_step(params[dev], chunk, toks.to(dev),
+                                        start.to(dev), last.to(dev))
+        out[dev] = (steps, sel, chunk)
+    for (a, _), (b, _) in zip(out["cuda"][0], out["cpu"][0]):
+        assert a.device.type == "cuda"
+        assert _rel(a, b) <= RECURRENT_CARD_TOL
+    assert _rel(out["cuda"][1], out["cpu"][1]) <= RECURRENT_CARD_TOL
+    steps, sel, chunk = out["cuda"]
+    bax = batch_axes_of(models["cuda"].cache_axes())
+    for b, j in enumerate(last.tolist()):
+        logits, state = steps[j]
+        assert torch.equal(sel[b], logits[b]), (arch, b)
+        for name, leaf in chunk.items():
+            assert torch.equal(leaf.select(bax[name], b),
+                               state[name].select(bax[name], b)), (name, b)

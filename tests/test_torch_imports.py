@@ -196,3 +196,29 @@ def test_serving_walk_defaults_to_cuda_and_never_falls_back(monkeypatch):
         ServingBackend().measure(OptLevel.O0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--serve", "--arch", "qwen3-8b"])
+
+
+def test_the_scan_covers_recurrent_serving():
+    assert {"repro_torch.models.scan_prefill", "repro_torch.models.rwkv_lm",
+            "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
+            "repro_torch.serving.paged",
+            "repro_torch.serving.layout"} <= set(_modules())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "mamba2-2.7b"])
+def test_recurrent_serving_defaults_to_cuda_and_never_falls_back(
+        monkeypatch, arch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.optlevel import OptLevel
+    from repro_torch.launch.serve import main, serve_demo
+    from repro_torch.models import get_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(get_smoke(arch))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_demo(get_smoke(arch), batch_size=2, max_seq=16, n_requests=1,
+                   level=OptLevel.O7)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", arch, "--smoke", "--level", "6"])
+    assert get_model(get_smoke(arch), device="cpu").carries_state

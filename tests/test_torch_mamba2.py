@@ -285,15 +285,37 @@ def test_remat_full_computes_the_same_gradients():
 
 
 def test_serving_hooks_and_decode_raise_naming_the_roadmap_item():
+    """The serving hooks serve now (ROADMAP A11a): ``cache_spec`` in the
+    cache dtype (bf16, as the reference), ``mamba2_decode`` under a
+    decode step, a paged step over state rows and a chunked prefill step;
+    no verify step, as in the reference.  The family check of
+    ``model_defs`` stands."""
     tm = get_model(get_smoke(ARCH), device="cpu")
-    for hook in ("decode_step", "cache_spec", "init_cache",
-                 "paged_decode_step", "prefill_step", "verify_step"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            getattr(tm, hook)()
-    for fn in (mamba2.mamba2_decode, mamba2.cache_spec, mamba2.decode_step,
-               mamba2.paged_decode_step, mamba2.prefill_step):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn(tm.cfg)
+    assert tm.carries_state
+    spec = tm.cache_spec(2, 16)
+    assert spec == {"conv": ((4, 2, 3, 160), torch.bfloat16),
+                    "ssm": ((4, 2, 4, 32, 16), torch.bfloat16)}
+    assert mamba2.cache_spec(tm.cfg, 2, 16) == spec
+    params = tm.init(torch.Generator().manual_seed(0))
+    assert params["layers"]["A_log"].dtype == torch.float32
+    cache = tm.init_cache(2, 16)
+    logits, cache = tm.decode_step(params, cache, torch.tensor([[3], [4]]),
+                                   torch.tensor([0, 0]))
+    assert logits.shape == (2, 256) and cache["ssm"].any()
+    pool = {k: torch.cat([torch.zeros_like(v[:, :1]), v], dim=1)
+            for k, v in cache.items()}
+    paged, _ = tm.paged_decode_step(params, pool, torch.tensor([1, 2]),
+                                    torch.tensor([[5], [6]]),
+                                    torch.tensor([1, 1]))
+    dense, _ = tm.decode_step(params, cache, torch.tensor([[5], [6]]),
+                              torch.tensor([1, 1]))
+    assert torch.equal(paged, dense)
+    assert torch.equal(pool["ssm"][:, 1:], cache["ssm"])
+    logits, _ = tm.prefill_step(params, cache, torch.tensor([[1, 2]] * 2),
+                                torch.tensor([2, 2]), torch.tensor([1, 0]))
+    assert torch.isfinite(logits).all()
+    for hook in ("verify_step", "paged_verify_step", "paged_prefill_step"):
+        assert getattr(tm, hook) is None
     with pytest.raises(ValueError, match="mamba"):
         mamba2.model_defs(get_smoke("rwkv6-3b"))
 
