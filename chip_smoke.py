@@ -15,7 +15,10 @@ Phases (any failure raises, and the script exits non-zero):
               H=32, KV=8, D=128, T=16, ragged lengths 1..2048, shuffled
               pool rows, NaN in the NULL block, unused rows and stale
               tails) and at edges (length 1, lengths a multiple of T,
-              G=1, f32 pools, a zero-length slot), each case's body
+              G=1, f32 pools, a zero-length slot), and at zamba2-2.7b's
+              shared attention (B=8, H=KV=32, D=80, T=16, lengths
+              129-216 across the 128-position partition: timed beside
+              sdpa and its bound too), each case's body
               logged and asserted (bf16 q: the split mma.sync body; f32
               q or pools: the CUDA-core body);
      3b.    — B2, the multi-query kernel (same source), against its plain
@@ -34,7 +37,8 @@ Phases (any failure raises, and the script exits non-zero):
      3g.    — the quantized branch of B1 and B2 (B1q, B2q: int8 and fp8
               e4m3 pools with (row, kv head) f32 scales, bf16 q) against
               the plain versions at the main path's shapes (B1 decode;
-              B2 chunk B=1, Q=64 from 960; verify B=8, Q=5) and edges
+              B2 chunk B=1, Q=64 from 960; verify B=8, Q=5; B1q also at
+              zamba2-2.7b's shape, int8 timed) and edges
               (G=1, f32 q, smoke width), with NaN in the NULL block, the
               unused rows and their scale rows, stale tails and a
               zero-scale row; every output bitwise equal to the kernel on
@@ -241,16 +245,30 @@ Phases (any failure raises, and the script exits non-zero):
               pool (a tick with a slot parked changes only the active
               rows and the NULL row, a reused row is zeroed); one mix (8
               requests, prompts 16-48, 16 new tokens, batch 8) at O0..O7
-              and at O6 with ``prefill_chunk=16``: O2..O7 in token mode
+              (O0/O1 on its first 2 requests, 4 new tokens each) and at
+              O6 with ``prefill_chunk=16`` (its first 4 requests): O2..O7
+              in token mode
               (the same batch-8 step) give O5's tokens, asserted; where
               O0/O1 (a batch-1 step a request) or the chunked run (a
               batch-1 chunk) part from them, the first divergent
               position's batch-1 and batch-8 logits are logged in bf16
               (C6) and, held within ``RECURRENT_C6_F32_TOL``, in f32; no
               kernel launches (serving these
-              families reaches none, as in the reference); a profile of
-              decode ticks (after both families' serving runs): ms a
-              tick, device busy, kernels a tick, tok/s.  It runs after
+              families reaches none, as in the reference); then
+              zamba2-2.7b (54 mamba layers, 9 applications of the shared
+              attention block; ``hybrid_family``): the O6 kernel step
+              (B1, and B1q on an int8 pool) teacher-forced against the
+              gather step and its plain version within
+              ``ZAMBA2_TF_FLOOR`` or twice the plain version's drift;
+              8 requests (prompts 129-200, 16 new, batch 8, max_seq 256)
+              at O5, O6-gather, O6-kernel, O6-kernel chunk 16 and
+              O6-kernel on an int8 pool: O6-gather's tokens equal O5's
+              (asserted), B1 / B1q launched 9 times a kernel tick, all
+              on the split body, the mixed pool's block and state-row
+              bytes asserted, every run's token agreement with O5
+              logged; a profile of decode ticks of each family (after
+              all three families' serving runs): ms a tick, device
+              busy, kernels a tick, tok/s.  It runs after
               phase 4, before phase 5: a ``torch.profiler`` session
               slows the host of its process for what follows, and this
               phase is host-bound.
@@ -587,6 +605,13 @@ def phase_kernel() -> tuple:
                "bf16")
     zero = paged_case(3, H, KV, D, T, [0, 40, 3], dtype=bf, seed=7)
     check_case("a zero-length slot", zero, "bf16")
+    zamba = paged_case(*ZAMBA2_B1, zamba2_lengths(), dtype=bf, seed=8)
+    z_err, _ = check_case(f"zamba2-2.7b's shared attention (B={ZAMBA2_B1[0]} "
+                          f"H=KV={ZAMBA2_B1[1]} D={ZAMBA2_B1[3]} "
+                          f"T={ZAMBA2_B1[4]} lengths="
+                          f"{zamba[4].tolist()})", zamba, "bf16")
+    zt = time_decode(zamba)
+    del zamba
 
     t = time_decode(main)
     out = {
@@ -600,14 +625,42 @@ def phase_kernel() -> tuple:
                              "library_ms", "wrapper_host_ms",
                              "cuda_core_ms", "p", "p_sweep")},
         "cuda_core_source": KERNEL_SOURCE,
+        "zamba2": zamba2_entry(zt, z_err),
     }
-    log(f"[kernel] B1 main path: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, library (sdpa on a gathered view) "
-        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']}: {t['bytes']} B, {t['flops']} FLOP); the "
-        f"wrapper's host time per call {t['wrapper_host_ms']:.4f} ms")
-    log_bodies("B1 main path", t)
+    for what, tt in (("B1 main path", t), ("B1 at zamba2's shape", zt)):
+        log(f"[kernel] {what}: kernel {tt['ms']:.4f} ms, plain "
+            f"{tt['plain_ms']:.4f} ms, library (sdpa on a gathered view) "
+            f"{tt['library_ms']:.4f} ms, bound {tt['bound_ms']:.4f} ms "
+            f"({tt['bound_by']}: {tt['bytes']} B, {tt['flops']} FLOP); the "
+            f"wrapper's host time per call {tt['wrapper_host_ms']:.4f} ms")
+        log_bodies(what, tt)
     return out, main
+
+
+# B1 / B1q at zamba2-2.7b's shared attention (phase 11's decode): B=8,
+# H=KV=32 (group 1), D=80, T=16; lengths of phase 11's prompts (129-200)
+# plus up to its 16 new tokens, so every slot spans two 128-position
+# partitions and runs the combine.
+ZAMBA2_B1 = (8, 32, 32, 80, 16)
+
+
+def zamba2_lengths() -> list:
+    import numpy as np
+
+    r = np.random.default_rng(29)
+    lengths = r.integers(129, 217, ZAMBA2_B1[0])
+    lengths[0], lengths[-1] = 129, 216
+    return lengths.tolist()
+
+
+def zamba2_entry(t: dict, err: float) -> dict:
+    """The kernels line's numbers of one kernel at zamba2's shape."""
+    B, H, KV, D, T = ZAMBA2_B1
+    return {"shape": f"B={B} H={H} KV={KV} D={D} T={T}",
+            "lengths": zamba2_lengths(), "max_abs_err": err,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "wrapper_host_ms",
+                                 "cuda_core_ms", "p", "p_sweep")}}
 
 
 def kv_bytes(case, n_tok: int, blocks: int) -> int:
@@ -976,6 +1029,22 @@ def phase_quant_kernel() -> dict:
                                quant_case(paged_case(
                                    3, 4, 2, 16, 4, [1, 9, 32], dtype=bf,
                                    seed=6), kvd), kvd))
+        zamba = quant_case(paged_case(*ZAMBA2_B1, zamba2_lengths(),
+                                      dtype=bf, seed=8), kvd)
+        z_err = held(f"zamba2-2.7b's shared attention (H=KV=32 D=80 T=16 "
+                     f"lengths={zamba2_lengths()})", zamba, kvd)
+        errs["b1"].append(z_err)
+        if kvd == "int8":
+            z_int8 = zamba2_entry(time_decode(zamba), z_err)
+            log(f"[kernel] B1q int8 at zamba2's shape: kernel "
+                f"{z_int8['ms']:.4f} ms, plain {z_int8['plain_ms']:.4f} ms, "
+                f"library (sdpa on a pre-dequantized gathered view) "
+                f"{z_int8['library_ms']:.4f} ms, bound "
+                f"{z_int8['bound_ms']:.4f} ms ({z_int8['bound_by']}); the "
+                f"wrapper's host time per call "
+                f"{z_int8['wrapper_host_ms']:.4f} ms")
+            log_bodies("B1q int8 at zamba2's shape", z_int8)
+        del zamba
         chunk = quant_case(paged_case(1, H, KV, D, T, [960 + 64], dtype=bf,
                                       q_len=64, seed=13, nb=64), kvd)
         errs["b2"].append(held("chunked prefill B=1 Q=64 start=960", chunk,
@@ -1027,6 +1096,8 @@ def phase_quant_kernel() -> dict:
         if which == "b2":
             entry["verify"] = {kvd: {k: res[kvd]["b2"]["verify"][k]
                                      for k in keys} for kvd in res}
+        else:
+            entry["zamba2"] = z_int8
         out.append(entry)
     return out
 
@@ -2024,13 +2095,16 @@ def phase_ladder(device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
-                   seed=0) -> dict:
+                   seed=0, prefix=None) -> dict:
     """The gather step, the kernel step and the kernel step with the
     kernel's plain version in its place, fed the same tokens over the
-    same random KV prefix (a different length per slot); logits compared
-    every tick.  The plain-version step measures how far two
+    same random KV prefix (a different length per slot, drawn from
+    ``prefix`` = (low, high), default (1, max_seq - ticks)); logits
+    compared every tick.  The plain-version step measures how far two
     implementations that differ only in reduction order drift apart
-    through this stack, which is what the kernel step is judged by."""
+    through this stack, which is what the kernel step is judged by.  A
+    mixed pool (zamba2) starts its state rows from zero and moves them
+    through the rows beside the tables."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import ref
@@ -2041,7 +2115,7 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
     cfg = model.cfg
     dev = model.device
     r = np.random.default_rng(seed)
-    prefix = r.integers(1, max_seq - ticks, B)
+    prefix = r.integers(*(prefix or (1, max_seq - ticks)), B)
     gather, kern, plain = mgrs = [
         PagedCacheManager(model, B, max_seq, block_size=T) for _ in range(3)]
     for mgr in mgrs:
@@ -2058,23 +2132,29 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
                                   generator=g, device=dev)
                 for mgr in mgrs:
                     mgr.cache[name][:, row] = blk.to(torch.bfloat16)
-    (tables,) = gather.step_extras()
-    rel = {"kernel_vs_gather": 0.0, "plain_vs_gather": 0.0,
-           "kernel_vs_plain": 0.0}
+    extras = gather.step_extras()
+    tables, rows = extras[0], extras[1] if len(extras) > 1 else None
+    by_tick = {"kernel_vs_gather": [], "plain_vs_gather": [],
+               "kernel_vs_plain": []}
     agree = 0
     for t in range(ticks):
         toks = torch.tensor(r.integers(1, cfg.vocab, (B, 1)), device=dev)
         pos = torch.tensor(prefix + t, device=dev)
         dense = gather.plan.gather(gather.cache, tables)
+        if rows is not None:
+            dense.update(gather.state_plan.gather(gather.cache, rows))
         lg, dense = model.decode_step(params, dense, toks, pos)
+        if rows is not None:
+            gather.state_plan.scatter(gather.cache, rows, dense)
         gather.plan.scatter(gather.cache, tables, dense, pos)
         del dense
-        lk, _ = model.paged_decode_step(params, kern.cache, tables, toks, pos)
+        lk, _ = model.paged_decode_step(params, kern.cache, *extras, toks,
+                                        pos)
         kernel_fn = attention.paged_attention
         attention.paged_attention = ref.paged_attention_ref
         try:
-            lp, _ = model.paged_decode_step(params, plain.cache, tables, toks,
-                                            pos)
+            lp, _ = model.paged_decode_step(params, plain.cache, *extras,
+                                            toks, pos)
         finally:
             attention.paged_attention = kernel_fn
         if not all(torch.isfinite(x).all() for x in (lg, lk, lp)):
@@ -2082,12 +2162,13 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
         for key, (a, b) in {"kernel_vs_gather": (lk, lg),
                             "plain_vs_gather": (lp, lg),
                             "kernel_vs_plain": (lk, lp)}.items():
-            rel[key] = max(rel[key],
-                           float((a - b).abs().max() / b.abs().max()))
+            by_tick[key].append(float((a - b).abs().max() / b.abs().max()))
         agree += int((lk.argmax(-1) == lg.argmax(-1)).sum())
     return {"layers": cfg.n_layers, "ticks": ticks, "batch": B,
-            "prefix": prefix.tolist(), "max_rel_logit_diff": rel,
-            "argmax_agree": agree, "argmax_total": ticks * B}
+            "prefix": prefix.tolist(),
+            "max_rel_logit_diff": {k: max(v) for k, v in by_tick.items()},
+            "rel_by_tick": by_tick, "argmax_agree": agree,
+            "argmax_total": ticks * B}
 
 
 def profile_ticks(model, params, reqs, *, B, max_seq, T, pool_blocks,
@@ -2628,11 +2709,12 @@ NARROW_TF_TOL = {"2": 2e-2, "deep": 0.12}
 
 
 def teacher_forced_quant(model, params, *, kvd="int8", B=8, max_seq=1024,
-                         T=16, ticks=8, seed=0) -> dict:
+                         T=16, ticks=8, seed=0, prefix=None) -> dict:
     """The narrow kernel decode step against the same step with B1's
     plain version in its place, fed the same tokens over the same random
-    KV prefix quantized per block (a different length per slot); logits
-    compared every tick."""
+    KV prefix quantized per block (a different length per slot, drawn
+    from ``prefix`` as in ``teacher_forced``); logits compared every
+    tick."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import ref
@@ -2642,7 +2724,7 @@ def teacher_forced_quant(model, params, *, kvd="int8", B=8, max_seq=1024,
 
     cfg, dev = model.cfg, model.device
     r = np.random.default_rng(seed)
-    prefix = r.integers(1, max_seq - ticks, B)
+    prefix = r.integers(*(prefix or (1, max_seq - ticks)), B)
     kern, plain = mgrs = [
         PagedCacheManager(model, B, max_seq, block_size=T, kv_dtype=kvd)
         for _ in range(2)]
@@ -2662,30 +2744,31 @@ def teacher_forced_quant(model, params, *, kvd="int8", B=8, max_seq=1024,
                 for mgr in mgrs:
                     kvquant.as_bytes(mgr.cache["pool"][name])[:, row] = words
                     mgr.cache["scale"][name][:, row] = sc[:, 0, :, 0]
-    (tables,) = kern.step_extras()
-    rel, agree = 0.0, 0
+    extras = kern.step_extras()
+    by_tick, agree = [], 0
     for t in range(ticks):
         toks = torch.tensor(r.integers(1, cfg.vocab, (B, 1)), device=dev)
         pos = torch.tensor(prefix + t, device=dev)
-        lk = model.paged_decode_step(params, kern.cache["pool"], tables, toks,
-                                     pos, scales=kern.cache["scale"],
+        lk = model.paged_decode_step(params, kern.cache["pool"], *extras,
+                                     toks, pos, scales=kern.cache["scale"],
                                      kv_dtype=kvd)[0]
         kernel_fn = attention.paged_attention
         attention.paged_attention = ref.paged_attention_ref
         try:
             lp = model.paged_decode_step(
-                params, plain.cache["pool"], tables, toks, pos,
+                params, plain.cache["pool"], *extras, toks, pos,
                 scales=plain.cache["scale"], kv_dtype=kvd)[0]
         finally:
             attention.paged_attention = kernel_fn
         if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
             raise AssertionError(f"5f {kvd}: non-finite logits")
-        rel = max(rel, _rel(lk, lp))
+        by_tick.append(_rel(lk, lp))
         agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
     return {"layers": cfg.n_layers, "kv_dtype": kvd, "ticks": ticks,
             "batch": B, "prefix": prefix.tolist(),
-            "max_rel_logit_diff_kernel_vs_plain": rel,
-            "argmax_agree": agree, "argmax_total": ticks * B}
+            "max_rel_logit_diff_kernel_vs_plain": max(by_tick),
+            "rel_by_tick": by_tick, "argmax_agree": agree,
+            "argmax_total": ticks * B}
 
 
 def smoke_card_vs_cpu(kvd: str) -> dict:
@@ -4136,6 +4219,28 @@ RECURRENT_C6_F32_TOL = 2e-2
 # Phase 11's mix: 8 requests at batch 8, prompts of 16-48 tokens, 16 new
 # tokens each, and the chunked run's prefill chunk.
 RECURRENT_B, RECURRENT_NEW, RECURRENT_CHUNK = 8, 16, 16
+# Phase 11's batch-1 runs of rwkv6-3b and mamba2-2.7b (O0/O1: a batch-1
+# call a request a tick; the chunked run: a batch-1 chunk) serve the first
+# requests of the mix: O0/O1 the first 2 with 4 new tokens each, the
+# chunked run the first 4 (their tokens held to the same prefix of
+# O5's), which keeps room for zamba2-2.7b in the script's time.
+RECURRENT_O01_MIX, RECURRENT_CHUNK_MIX = (2, 4), (4, RECURRENT_NEW)
+# Phase 11's zamba2-2.7b mix: 8 requests at batch 8 and max_seq 256,
+# prompts of 129-200 tokens (so every slot's B1 call spans two
+# 128-position partitions), 16 new tokens each; the same chunk.
+ZAMBA2_MAX_SEQ, ZAMBA2_PROMPTS = 256, (129, 201)
+# Phase 11, zamba2: the O6 kernel step (B1 on the shared attention)
+# against the gather step, and on an int8 pool (B1q) against its plain
+# version, teacher-forced over the same random KV prefix (lengths
+# 129-200) from the zeroed state, max |dlogit| / max |logit| over 8
+# ticks: at most this, or twice what the step with B1's plain version in
+# the kernel's place drifts from the gather step.  The steps part by
+# reduction order, which this random model amplifies (ROADMAP C8): two
+# sound implementations read 0.108-0.158 after 8 ticks (the plain
+# version against the gather step, B1 against the plain version, B1q
+# against its plain version; PERF.md section 6), 0.0197 after one.  A
+# broken kernel moves the logits by their own scale.
+ZAMBA2_TF_FLOOR = 0.3
 
 
 def recurrent_teacher_forced(cfg, params, *, B=8, ticks=4, C=16) -> dict:
@@ -4328,20 +4433,28 @@ def recurrent_family(arch: str, card: str) -> tuple:
              f"O6-chunk{RECURRENT_CHUNK}": dict(
                  level=OptLevel.O6, paged_attn="kernel",
                  prefill_chunk=RECURRENT_CHUNK)}
-    runs = {}
+    # The batch-1 runs serve the first requests with ``max_new`` tokens
+    # each, to keep the script inside its time.
+    cut = {}
+    for names, (n, new) in ((("O0", "O1"), RECURRENT_O01_MIX),
+                            ((f"O6-chunk{RECURRENT_CHUNK}",),
+                             RECURRENT_CHUNK_MIX)):
+        cut.update(dict.fromkeys(names, [(p, new) for p, _ in reqs[:n]]))
+    runs, mixes = {}, {}
     for name, kw in cells.items():
+        mix = mixes[name] = cut.get(name, reqs)
         eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
                            config=BestEffortConfig(**kw),
                            **(dict(draft_model=model, draft_params=params)
                               if name == "O7" else {}))
         reset_launches()
-        out = serve_counted(eng, reqs)
+        out = serve_counted(eng, mix)
         launches = read_launches()
         if any(launches.values()):
             raise AssertionError(f"11 {arch} {name}: recurrent serving runs "
                                  f"no kernel, launched {launches}")
         fin = out["generated"]
-        if any(len(gr) != n for gr, (_, n) in zip(fin, reqs)) or any(
+        if any(len(gr) != n for gr, (_, n) in zip(fin, mix)) or any(
                 not 0 <= t < cfg.vocab for gr in fin for t in gr):
             raise AssertionError(f"11 {arch} {name}: bad tokens {fin}")
         out.update(prefill_mode=eng.prefill_mode, spec_mode=eng.spec_mode,
@@ -4378,15 +4491,16 @@ def recurrent_family(arch: str, card: str) -> tuple:
     c6, seen, f32 = {}, {}, None
     for name in ("O0", "O1", f"O6-chunk{RECURRENT_CHUNK}"):
         got = runs[name]["generated"]
-        runs[name]["equal_to_o5"] = same = _same_tokens(got, want)
-        if got == want:
+        ref = [w[:n] for w, (_, n) in zip(want, mixes[name])]
+        runs[name]["equal_to_o5"] = same = _same_tokens(got, ref)
+        if got == ref:
             log(f"[11] {arch} {name}: tokens identical to O5")
             continue
-        at = first_divergence(want, got)
+        at = first_divergence(ref, got)
         if at not in seen:
             if f32 is None:
                 f32 = f32_model(cfg, params)
-            seen[at] = [unpipelined_divergence(m, p, reqs, want, got, B=B,
+            seen[at] = [unpipelined_divergence(m, p, reqs, ref, got, B=B,
                                                max_seq=max_seq)
                         for m, p in ((model, params), f32)]
         d, d32 = seen[at]
@@ -4429,20 +4543,195 @@ def recurrent_profile(arch: str, model, params, reqs) -> dict:
     return prof
 
 
+def hybrid_family(card: str) -> tuple:
+    """zamba2-2.7b at its published widths and depth (54 mamba layers, 9
+    shared-block applications): bf16 weights drawn on the card from seed
+    0; the O6 kernel step against the gather step, teacher-forced; the
+    phase-11 zamba2 mix served at O5, O6-gather, O6-kernel (B1 on the
+    shared attention), O6-kernel with ``prefill_chunk=16`` and O6-kernel
+    from an int8 pool (B1q).  Asserts: O5 and O6-gather's tokens equal;
+    B1 / B1q launched 9 times a kernel tick, all on the split body, and
+    nowhere else; the int8 run within ``kvquant.tolerance_contract`` of
+    O5's tokens; the mixed pool's block and state-row bytes.  Returns
+    (the result, (model, params, requests)) for the profile."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.launch.serve import demo_requests
+    from repro_torch.models import get_model
+    from repro_torch.serving import DecodeEngine, kvquant
+
+    arch = "zamba2-2.7b"
+    t_fam = time.perf_counter()
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    A = cfg.n_layers // cfg.attn_every
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    B, max_seq = RECURRENT_B, ZAMBA2_MAX_SEQ
+    reqs = demo_requests(cfg, B, seed=0, prompt_len=ZAMBA2_PROMPTS,
+                         max_new=(RECURRENT_NEW, RECURRENT_NEW + 1))
+    log(f"[11] {arch} {cfg.n_layers} mamba layers + {A} shared-block "
+        f"applications, d={cfg.d_model}, H=KV={cfg.n_heads}, "
+        f"head_dim={cfg.head_dim}: {n_params} params in bf16 drawn in "
+        f"{time.perf_counter() - t0:.1f} s; requests: prompts "
+        f"{sorted(len(p) for p, _ in reqs)}, {RECURRENT_NEW} new each, "
+        f"batch {B}, max_seq {max_seq}")
+    res = {"arch": arch, "params": n_params, "layers": cfg.n_layers,
+           "applications": A, "prompt_lens": [len(p) for p, _ in reqs]}
+
+    kw = dict(B=B, max_seq=max_seq, prefix=ZAMBA2_PROMPTS)
+    tf = teacher_forced(model, params, **kw)
+    tfq = teacher_forced_quant(model, params, kvd="int8", **kw)
+    res["teacher_forced"] = {"bf16": tf, "int8": tfq}
+    bound = max(ZAMBA2_TF_FLOOR,
+                2 * tf["max_rel_logit_diff"]["plain_vs_gather"])
+    res["teacher_forced_bound"] = bound
+    ticks = {f"bf16 {k}": v for k, v in tf["rel_by_tick"].items()}
+    ticks["int8 kernel_vs_plain"] = tfq["rel_by_tick"]
+    log(f"[11] {arch} teacher-forced, {tf['ticks']} ticks at batch {B} "
+        f"(prefixes {tf['prefix']}), max |dlogit| / max |logit| by tick: "
+        + "; ".join(f"{k} " + " ".join(f"{x:.2e}" for x in v)
+                    for k, v in ticks.items())
+        + f" (bound {bound:.3e}); argmax kernel vs gather agree "
+        f"{tf['argmax_agree']}/{tf['argmax_total']}, int8 kernel vs plain "
+        f"{tfq['argmax_agree']}/{tfq['argmax_total']}")
+    for key in ("bf16 kernel_vs_gather", "int8 kernel_vs_plain"):
+        if not max(ticks[key]) <= bound:
+            raise AssertionError(f"11 {arch}: teacher-forced {key} "
+                                 f"{ticks[key]} beyond {bound}")
+    torch.cuda.empty_cache()
+
+    kernel = dict(level=OptLevel.O6, paged_attn="kernel")
+    cells = {"O5": dict(level=OptLevel.O5),
+             "O6-gather": dict(level=OptLevel.O6),
+             "O6-kernel": kernel,
+             f"O6-chunk{RECURRENT_CHUNK}": dict(
+                 kernel, prefill_chunk=RECURRENT_CHUNK),
+             "O6-kernel int8": dict(kernel, kv_dtype="int8")}
+    runs, tokens = {}, {}
+    for name, kw in cells.items():
+        eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
+                           config=BestEffortConfig(**kw))
+        reset_launches()
+        out = serve_counted(eng, reqs)
+        launches = read_launches()
+        out["body_launches"] = paged_bodies(f"11 {arch} {name}")
+        no_training_kernels(f"11 {arch} {name}")
+        b1 = launches.pop("paged_attention")
+        want = A * out["dispatches"] if "kernel" in name or "chunk" in \
+            name else 0
+        if b1 != want or any(launches.values()):
+            raise AssertionError(f"11 {arch} {name}: B1 launched {b1} "
+                                 f"times (want {want}: {A} a kernel tick), "
+                                 f"others {launches}")
+        fin = tokens[name] = out.pop("generated")
+        if any(len(gr) != n for gr, (_, n) in zip(fin, reqs)) or any(
+                not 0 <= t < cfg.vocab for gr in fin for t in gr):
+            raise AssertionError(f"11 {arch} {name}: bad tokens {fin}")
+        out.update(launches=b1, prefill_mode=eng.prefill_mode,
+                   state_impl=eng.layout.state_impl,
+                   attn_impl=eng.layout.attn_impl,
+                   kv_dtype=kw.get("kv_dtype", "bf16"))
+        if eng.layout.name == "paged":
+            out["pool"] = g = eng.cache_mgr.geometry
+            if eng.layout.state_impl != "rows" or not eng.cache_mgr.has_blocks:
+                raise AssertionError(f"11 {arch} {name}: not a mixed pool")
+            log(f"[11] {arch} {name} pool: {g['pool_rows']} block rows of "
+                f"{g['block_size']} x {g['token_bytes']} B a token "
+                f"({g['kv_dtype']}; {g['scale_bytes_per_block']} B of "
+                f"scales a row) + {g['state_rows']} state rows of "
+                f"{g['state_row_bytes']} B = {g['pool_mb']:.1f} MiB")
+        if name.startswith("O6-chunk") and eng.prefill_mode != "chunked":
+            raise AssertionError(f"11 {arch} {name}: prefill_mode "
+                                 f"{eng.prefill_mode}")
+        runs[name] = out
+        log(f"[11] {arch} {name} on {card}: {out['tokens']} tokens in "
+            f"{out['ticks']} ticks / {out['wall_s']:.3f} s = "
+            f"{out['tok_per_s']:.1f} tok/s, {out['ms_per_tick']:.2f} "
+            f"ms/tick, {out['dispatches']} dispatches, TTFT ticks "
+            f"{max(out['ttft_ticks'])} (max); prefill {eng.prefill_mode}, "
+            f"state {eng.layout.state_impl}, B1 launches {b1}")
+        del eng
+        torch.cuda.empty_cache()
+
+    g = runs["O6-kernel"]["pool"]
+    kv_token = A * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    d_in = cfg.ssm_expand * cfg.d_model
+    row = cfg.n_layers * ((cfg.conv_width - 1) * (d_in + 2 * cfg.ssm_state)
+                          + d_in * cfg.ssm_state) * 2
+    if (g["token_bytes"], g["state_row_bytes"]) != (kv_token, row):
+        raise AssertionError(f"11 {arch}: geometry {g}, want {kv_token} B "
+                             f"a token, {row} B a state row")
+    want = tokens["O5"]
+    if tokens["O6-gather"] != want:
+        raise AssertionError(f"11 {arch}: O6-gather tokens "
+                             f"{tokens['O6-gather']} != O5 {want}")
+    for name in runs:
+        runs[name]["equal_to_o5"] = _same_tokens(tokens[name], want)
+    # Prefix agreement with O5 (``kvquant.token_agreement``), logged
+    # beside the int8 contract's floor, not gated: at full depth with the
+    # reference's initialiser the bf16 kernel run, which differs from O5
+    # only in reduction order, parts from it too (ROADMAP C8); the
+    # teacher-forced bounds above hold B1 and B1q.
+    contract = kvquant.tolerance_contract("int8")
+    for name in runs:
+        runs[name]["agreement_with_o5"] = kvquant.token_agreement(
+            want, tokens[name])
+    log(f"[11] {arch}: O6-gather tokens identical to O5's (asserted); equal "
+        f"to O5 / prefix agreement: " + ", ".join(
+            f"{name} {runs[name]['equal_to_o5'][0]}/"
+            f"{runs[name]['equal_to_o5'][1]} / "
+            f"{runs[name]['agreement_with_o5']:.3f}" for name in runs)
+        + f" (int8 contract floor {contract['min_agreement']}, not gated); "
+        f"pool {kv_token} B of KV a token, {row / 1e6:.2f} MB a state row")
+    res["runs"] = runs
+    res["wall_s"] = time.perf_counter() - t_fam
+    return res, (model, params, reqs)
+
+
+def hybrid_profile(model, params, reqs) -> dict:
+    """A profile of zamba2's O6-kernel decode ticks: B1 launched 9 times a
+    tick (asserted)."""
+    A = model.cfg.n_layers // model.cfg.attn_every
+    reset_launches()
+    prof = profile_ticks(model, params, reqs, B=RECURRENT_B,
+                         max_seq=ZAMBA2_MAX_SEQ, T=16, pool_blocks=0, warm=8,
+                         ticks=4)
+    launches = read_launches()
+    b1 = launches.pop("paged_attention")
+    if not b1 or b1 % A or any(launches.values()):
+        raise AssertionError(f"11 zamba2: the profiled ticks launched "
+                             f"{read_launches()}")
+    prof["b1_launches"] = b1
+    log_profile("[11] zamba2-2.7b", prof)
+    if prof["device_ms_per_tick"] is not None:
+        tok_s = RECURRENT_B / prof["wall_ms_per_tick"] * 1e3
+        log(f"[11] zamba2-2.7b: {tok_s:.1f} tok/s at batch {RECURRENT_B} "
+            f"in the profiled ticks")
+    return prof
+
+
 def phase_recurrent(card: str) -> dict:
     """Phase 11: rwkv6-3b and mamba2-2.7b served at full width and depth
-    (``recurrent_family``), one after the other, both kept on the card;
-    then both profiled.  A ``torch.profiler`` session leaves the host of
-    its process ~1.2x slower for what follows (PERF.md section 6), and
-    this phase is host-bound, so it runs before any phase that profiles
-    and its own profiles come after all its serving runs."""
+    (``recurrent_family``), then zamba2-2.7b (``hybrid_family``), one
+    after the other, all kept on the card; then all three profiled.  A
+    ``torch.profiler`` session leaves the host of its process ~1.2x
+    slower for what follows (PERF.md section 6), and this phase is
+    host-bound, so it runs before any phase that profiles and its own
+    profiles come after all its serving runs."""
     import torch
 
     res, kept = {"card": card}, {}
     for arch in ("rwkv6-3b", "mamba2-2.7b"):
         res[arch], kept[arch] = recurrent_family(arch, card)
+    res["zamba2-2.7b"], hybrid = hybrid_family(card)
     for arch, (model, params, reqs) in kept.items():
         res[arch]["profile"] = recurrent_profile(arch, model, params, reqs)
+    res["zamba2-2.7b"]["profile"] = hybrid_profile(*hybrid)
+    del hybrid
     # What a profiler session costs the host: O5 served again, after it.
     from repro_torch.core.optlevel import BestEffortConfig, OptLevel
     from repro_torch.serving import DecodeEngine
@@ -4548,6 +4837,12 @@ def main() -> int:
     for k, run in ((b1, full), (b2, full["chunked"])):
         for body, count in run["body_launches"][k["name"]].items():
             k[f"launches_{body}"] = count
+    # zamba2-2.7b's shared attention in phase 11: B1 in its bf16 O6-kernel
+    # and chunked runs, B1q in its int8 run.
+    zruns = recurrent["zamba2-2.7b"]["runs"]
+    b1["launches_by_run"].update(
+        {f"11 zamba2 {run}": zruns[run]["launches"]
+         for run in ("O6-kernel", f"O6-chunk{RECURRENT_CHUNK}")})
     # The quantized branch on its main path: phase 5f's narrow runs (not
     # its bf16 batch-16 run), B1q in the int8 run (b), B2q in the int8
     # run (d).
@@ -4560,6 +4855,8 @@ def main() -> int:
         k["launches"] = k["launches_by_run"][main_run]
         for body, count in narrow[main_run]["body_launches"][wrapper].items():
             k[f"launches_{body}"] = count
+    b1q["launches_by_run"]["11 zamba2 O6-kernel int8"] = \
+        zruns["O6-kernel int8"]["launches"]
     # B3 on its main path: phase 6's train() run, by body.
     b3["launches"] = trained["launches"]["flash_attention"]
     b3["launches_by_run"] = {"train": b3["launches"]}

@@ -10,12 +10,14 @@ What it serves: the dense ``qwen3-8b`` family through
 ``serving.engine.DecodeEngine`` at rungs O0..O5 (contiguous cache), O6
 (paged KV pool, ``paged_attn="gather"|"kernel"``) and O7 (speculative
 decoding with a drafter), with prompts fed a token per tick or in chunks
-(``prefill_chunk``); and the attention-free ``rwkv6-3b`` and
+(``prefill_chunk``); the attention-free ``rwkv6-3b`` and
 ``mamba2-2.7b`` at the same rungs, their carried state in a pool of
-state rows at O6 (O7 decodes them plainly: they have no verify step, as
-in the reference).  The paged attention kernels — one query per slot
-(decode) and a window of queries per slot (chunked prefill, verify) —
-are written in CUDA for sm_90a
+state rows at O6; and the hybrid ``zamba2-2.7b`` (a mamba2 trunk with one
+shared attention block), its trunk's state in state rows and its shared
+attention's K/V in blocks at O6 (O7 decodes the three plainly: they have
+no verify step, as in the reference).  The paged attention kernels —
+one query per slot (decode) and a window of queries per slot (chunked
+prefill, verify) — are written in CUDA for sm_90a
 (``kernels/paged_attention/csrc/paged_attention.cu``).  It trains the same
 family on one card (``launch.train``: f32 masters, bf16 compute, remat,
 AdamW, the synthetic stream, async checkpoints, the resilient loop),

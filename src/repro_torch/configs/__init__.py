@@ -1,8 +1,9 @@
 """Config registry of the port: only the archs it runs — qwen3-8b,
 smollm-360m (its speculative drafter, and the training CLI's default),
-rwkv6-3b and mamba2-2.7b (trained)."""
+rwkv6-3b and mamba2-2.7b (trained), and zamba2-2.7b (served)."""
 
-from repro_torch.configs import mamba2_2p7b, qwen3_8b, rwkv6_3b, smollm_360m
+from repro_torch.configs import (mamba2_2p7b, qwen3_8b, rwkv6_3b,
+                                 smollm_360m, zamba2_2p7b)
 from repro_torch.configs.base import (ArchConfig, SHAPES,  # noqa: F401
                                       ShapeConfig)
 
@@ -11,6 +12,7 @@ _MODULES = {
     "smollm-360m": smollm_360m,
     "rwkv6-3b": rwkv6_3b,
     "mamba2-2.7b": mamba2_2p7b,
+    "zamba2-2.7b": zamba2_2p7b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -1,12 +1,13 @@
 """Architecture and shape configs (port copy of the fields it reads).
 
 The fields of ``repro/configs/base.py::ArchConfig`` that the serving
-and training paths of the dense, rwkv6 and mamba2 families read, with
-the same names and defaults, and ``ShapeConfig``/``SHAPES``.
+and training paths of the dense, rwkv6, mamba2 and hybrid (zamba2)
+families read, with the same names and defaults, and
+``ShapeConfig``/``SHAPES``.
 The reference's sharding and scan knobs (``constrain`` axes,
 ``unroll_layers``) have no counterpart: the port runs on one device and
 loops over layers in Python.  Families and features outside the port
-(MoE, hybrid, enc-dec, relu2 MLPs) are rejected by the model code, not
+(MoE, enc-dec, relu2 MLPs) are rejected by the model code, not
 silently ignored.
 """
 
@@ -18,8 +19,9 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | ssm (rwkv6) | mamba (mamba2);
-                                 # each serves and trains
+    family: str                  # dense | ssm (rwkv6) | mamba (mamba2) |
+                                 # hybrid (zamba2); each serves, and
+                                 # each but hybrid trains on the card
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,6 +38,9 @@ class ArchConfig:
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     conv_width: int = 4
+    # Hybrid (family "hybrid"): the shared attention block runs after
+    # every ``attn_every`` mamba layers.
+    attn_every: int = 0
     # RWKV (family "ssm")
     rwkv_head_dim: int = 64
     # Numerics / memory.  Serving stores params in ``compute_dtype`` (the

@@ -12,7 +12,11 @@ families at every level: their carried state lives in a pool of state
 rows at ``--level 6`` (which also chunks their prompts, parking a slot
 mid-prompt on the NULL row), the contiguous levels feed prompts a token
 per tick whatever ``--prefill-chunk`` says (recorded), and ``--level 7``
-decodes them plainly (no verify step).
+decodes them plainly (no verify step).  ``--arch zamba2-2.7b`` serves the
+hybrid family the same way; at ``--level 6`` its trunk's state lives in
+state rows and its shared attention's K/V in pool blocks, which
+``--paged-attn kernel`` reads through kernel B1 (B1q with ``--kv-dtype
+int8`` / ``fp8``).
 ``--prefill-chunk N`` consumes prompts N tokens per tick; ``--level 7
 --draft smollm-360m`` decodes speculatively (the drafter must share the
 target's vocab at the scale served, so the pair works with ``--smoke``

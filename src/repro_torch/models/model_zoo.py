@@ -2,14 +2,17 @@
 (port of ``repro/models/model_zoo.py``).
 
 ``get_model(cfg, device=None)`` returns a ``ModelAPI`` whose functions
-close over the arch config and the device (``None`` = CUDA).  Three
+close over the arch config and the device (``None`` = CUDA).  Four
 families are ported, each with the training loss and the serving hooks.
 The dense family has decode, chunked prefill and speculative verify,
-each dense and paged.  The ssm (rwkv6) and mamba (mamba2) families carry
-recurrent state: decode, its paged form over state rows and chunked
-prefill, but no paged prefill and no verify step, as in the reference
-(O7 on them decodes plainly).  ``input_specs``/``make_batch`` give a
-training cell's batch.
+each dense and paged.  The ssm (rwkv6), mamba (mamba2) and hybrid
+(zamba2) families carry recurrent state: decode, its paged form and
+chunked prefill, but no paged prefill and no verify step, as in the
+reference (O7 on them decodes plainly).  The paged decode step takes
+what the paged manager's ``step_extras()`` emits: (rows,) for rwkv6 and
+mamba2, (tables, rows) for the hybrid, whose shared attention reads the
+block pool (kernel B1) while its trunk's state lives in state rows.
+``input_specs``/``make_batch`` give a training cell's batch.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba2, rwkv_lm, scan_prefill, transformer
+from repro_torch.models import (hybrid, mamba2, rwkv_lm, scan_prefill,
+                                transformer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +52,7 @@ class ModelAPI:
     # (params, pool, *extras, tokens, positions) -> (logits, pool): the
     # serving O6 kernel path.  ``extras`` is what the paged manager's
     # ``step_extras()`` emits: (tables,) for the dense family, (rows,)
-    # for the recurrent ones.
+    # for the recurrent ones, (tables, rows) for the hybrid.
     paged_decode_step: Callable = None
     # Chunked prefill (params, cache, tokens (B, C), start (B,), last
     # (B,)) -> (logits, cache): C prompt tokens per call, logits at each
@@ -73,8 +77,8 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
     if cfg.family != "dense" or cfg.n_experts:
         raise NotImplementedError(
             f"family {cfg.family!r} (n_experts {cfg.n_experts}) is not "
-            f"ported yet; repro_torch runs the dense, ssm and mamba "
-            f"families (ROADMAP A11-A12)")
+            f"ported yet; repro_torch runs the dense, ssm, mamba and "
+            f"hybrid families (ROADMAP A11-A12)")
     dev = resolve_device(device)
     mod = transformer
     return ModelAPI(
@@ -109,17 +113,36 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
     )
 
 
-# The families whose decode cache is a carried state: family -> module.
-_RECURRENT = {"ssm": rwkv_lm, "mamba": mamba2}
+# The families whose decode cache carries state: family -> module.
+_RECURRENT = {"ssm": rwkv_lm, "mamba": mamba2, "hybrid": hybrid}
 
 
 def _recurrent_model(cfg: ArchConfig, dev: torch.device, mod) -> ModelAPI:
-    """rwkv6, mamba2: decode, its paged form over state rows (``extras``
-    = (rows,)) and chunked prefill by running the decode body over the
-    chunk.  No paged prefill and no verify step, as in the reference: a
-    carried state cannot roll rejected drafts back by truncating a
-    length, so the engine's O7 decodes plainly (``spec_mode`` "off")."""
+    """rwkv6, mamba2, zamba2: decode, its paged form and chunked prefill
+    by running the decode body over the chunk.  The paged step of rwkv6
+    and mamba2 runs the decode step on their state rows (``extras`` =
+    (rows,)); the hybrid's own takes (tables, rows): its shared
+    attention's K/V in blocks (kernel B1 / B1q on the card), its trunk's
+    state in rows.  No paged prefill and no verify step, as in the
+    reference: a carried state cannot roll rejected drafts back by
+    truncating a length, so the engine's O7 decodes plainly
+    (``spec_mode`` "off")."""
     batch_axes = scan_prefill.batch_axes_of(mod.cache_axes(cfg))
+    if hasattr(mod, "paged_decode_step"):
+        paged_step = (lambda params, pool, *rest, scales=None,
+                      kv_dtype="bf16": mod.paged_decode_step(
+                          cfg, params, pool, *rest, scales=scales,
+                          kv_dtype=kv_dtype))
+    else:
+        # Recurrent state is never quantized: ``scales``/``kv_dtype``
+        # only match the dense family's signature.
+        paged_step = (lambda params, pool, rows, tokens, positions,
+                      scales=None, kv_dtype="bf16":
+                      scan_prefill.row_decode_step(
+                          lambda cache, tok, pos: mod.decode_step(
+                              cfg, params, cache, tok, pos),
+                          pool, rows, tokens, positions,
+                          batch_axes=batch_axes))
     return ModelAPI(
         cfg=cfg,
         device=dev,
@@ -134,13 +157,7 @@ def _recurrent_model(cfg: ArchConfig, dev: torch.device, mod) -> ModelAPI:
             mod.init_cache(cfg, batch, max_seq, device=dev),
         cache_axes=lambda: mod.cache_axes(cfg),
         carries_state=True,
-        # Recurrent state is never quantized: ``scales``/``kv_dtype``
-        # only match the dense family's signature.
-        paged_decode_step=lambda params, pool, rows, tokens, positions,
-        scales=None, kv_dtype="bf16": scan_prefill.row_decode_step(
-            lambda cache, tok, pos: mod.decode_step(cfg, params, cache, tok,
-                                                    pos),
-            pool, rows, tokens, positions, batch_axes=batch_axes),
+        paged_decode_step=paged_step,
         prefill_step=lambda params, cache, tokens, start, last:
             mod.prefill_step(cfg, params, cache, tokens, start, last),
     )

@@ -16,7 +16,9 @@ again:
     recurrent family's carried state lives in a pool of state rows
     (``state_impl="rows"``): the gather step gathers the slots' rows, the
     kernel step hands the rows to the model's paged step, which does the
-    same (these families have no attention to run a kernel on).
+    same (rwkv6 and mamba2 have no attention to run a kernel on; the
+    hybrid zamba2 takes its tables and rows both, and its shared
+    attention runs the paged-decode kernel).
 
 The layout owns cache-manager construction, scheduler wiring (the block
 pool's admission gates) and the three steps the engine dispatches: the

@@ -640,16 +640,26 @@ class PagedCacheManager(PagedAllocator):
         THIS tick — the chunked-prefill park.  A parked slot's batched
         decode reads NULL garbage (its output is discarded; batch rows
         are independent) and its write lands in the sink, so its real
-        state advances only through its prefill chunks.  Tables are not
-        aliased: a parked slot's KV write is rewritten by its next
-        chunk."""
+        state advances only through its prefill chunks.  A pure-KV
+        family's tables are not aliased: a parked slot's KV write is the
+        right value at its next prompt position, which its next chunk
+        rewrites.  A mixed pool (state AND blocks) aliases the parked
+        slots' whole table rows to the NULL block as well: their K/V is
+        computed from the NULL row's garbage state, and on a narrow pool
+        the append would re-quantize the slot's active block, whose
+        earlier positions its chunks already wrote."""
         dev = self.model.device
         out = []
         if self.has_blocks:
-            if self._tables_dev is None:
-                self._tables_dev = torch.from_numpy(self.tables.copy()).to(
-                    dev)
-            out.append(self._tables_dev)
+            if parked and self.state is not None:
+                tables = self.tables.copy()
+                tables[list(parked)] = NULL_BLOCK
+                out.append(torch.from_numpy(tables).to(dev))
+            else:
+                if self._tables_dev is None:
+                    self._tables_dev = torch.from_numpy(
+                        self.tables.copy()).to(dev)
+                out.append(self._tables_dev)
         if self.state is not None:
             if parked:
                 rows = self.state.rows.copy()

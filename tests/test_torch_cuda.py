@@ -315,6 +315,47 @@ def test_split_body_narrow_pools_equal_their_dequantized_pools(kvd,
     _held_split((out[0], out[1], out[2], tables, lens), narrow=scales)
 
 
+# zamba2-2.7b's shared attention: H = KV = 32 (group 1, so a 16-row
+# tile with one live row), head_dim 80 (2560 / 32: the split body's D =
+# 128 instance, 5 of its k-steps and 10 n8 tiles of V live), T = 16; its
+# phase-11 lengths (prompts of 129..200 tokens and 16 new) cross the
+# 128-position partition, so every slot runs two partitions and the
+# combine.
+_ZAMBA2_LENGTHS = [129, _P(16, 80), _P(16, 80) + 1, 150, 200, 216, 1, 255]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvd", ["bf16", "int8"])
+def test_split_body_at_zamba2_shape_matches_plain(kvd):
+    """B1 (bf16 pool) and B1q (int8 pool) at zamba2's shape against the
+    plain version; B1q bitwise equal to B1 on its dequantized pool."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.serving import kvquant
+
+    assert ops.body(torch.bfloat16, torch.bfloat16, 80) == "split_mma"
+    assert (ops.partition_positions(16, 80), ops.row_tile(1)) == (128, 16)
+    case = _case_at(_ZAMBA2_LENGTHS, H=32, KV=32, D=80, T=16)
+    if kvd == "bf16":
+        _held_split(case)
+        return
+    q, kp, vp, tables, lens = _case_at(_ZAMBA2_LENGTHS, H=32, KV=32, D=80,
+                                       T=16, dtype=torch.float32)
+    words, scales = [], []
+    for pool in (kp, vp):
+        bad = torch.isnan(pool)
+        x = torch.nan_to_num(pool)
+        sc = kvquant.block_scale(x, (1, 3), kvd)
+        w = kvquant.quantize(x, sc, kvd)
+        kvquant.as_bytes(w)[bad] = 0x7F
+        sc = sc[:, 0, :, 0].contiguous()
+        sc[bad.flatten(1).all(1)] = float("nan")
+        words.append(w)
+        scales.append(sc)
+    _held_split((q.bfloat16(), words[0], words[1], tables, lens),
+                narrow=scales)
+
+
 @pytest.mark.cuda
 def test_f32_operands_still_run_the_cuda_core_body():
     """f32 q on f32 and bf16 pools, and bf16 q on an f32 pool, run the

@@ -205,7 +205,12 @@ def test_the_scan_covers_recurrent_serving():
             "repro_torch.serving.layout"} <= set(_modules())
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "mamba2-2.7b"])
+def test_the_scan_covers_the_hybrid():
+    assert {"repro_torch.models.hybrid",
+            "repro_torch.configs.zamba2_2p7b"} <= set(_modules())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "mamba2-2.7b", "zamba2-2.7b"])
 def test_recurrent_serving_defaults_to_cuda_and_never_falls_back(
         monkeypatch, arch):
     from repro_torch.configs import get_smoke

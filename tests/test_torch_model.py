@@ -188,7 +188,7 @@ def test_get_model_rejects_unported_families():
         get_model(cfg, device="cpu")
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="not ported"):
-        get_config("zamba2-2.7b")
+        get_config("whisper-base")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-"""The port's recurrent serving path — rwkv6-3b (family "ssm") and
-mamba2-2.7b (family "mamba") — against the JAX package, on the smoke
-configs (rwkv6: 2 layers, d_model 64, head_dim 16; mamba2: 4 layers,
-d_model 64, P 32, N 16), everything on the CPU.
+"""The port's recurrent serving path — rwkv6-3b (family "ssm"),
+mamba2-2.7b (family "mamba") and zamba2-2.7b (family "hybrid": a mamba2
+trunk with a shared attention block, served from a mixed pool of KV
+blocks and state rows) — against the JAX package, on the smoke configs
+(rwkv6: 2 layers, d_model 64, head_dim 16; mamba2: 4 layers, d_model 64,
+P 32, N 16; zamba2: 4 mamba layers, the shared block after every 2,
+4 heads of 16), everything on the CPU.
 
 Weights come from the reference's ``init(cfg, PRNGKey(0))`` through
 ``models/bridge.py``; caches, tokens and activations from seeded numpy
@@ -43,14 +46,14 @@ from repro.serving.paged import StatePool as JaxStatePool
 from repro_torch.configs import get_smoke
 from repro_torch.core.optlevel import BestEffortConfig, OptLevel
 from repro_torch.launch.serve import serve_demo
-from repro_torch.models import get_model, mamba2, rwkv6, rwkv_lm
+from repro_torch.models import get_model, hybrid, mamba2, rwkv6, rwkv_lm
 from repro_torch.models.bridge import params_from_jax
 from repro_torch.models.scan_prefill import batch_axes_of, scan_prefill
 from repro_torch.models.transformer import layer_params
 from repro_torch.serving import DecodeEngine, Request
-from repro_torch.serving.paged import NULL_ROW, StatePool
+from repro_torch.serving.paged import NULL_BLOCK, NULL_ROW, StatePool
 
-ARCHS = ["rwkv6-3b", "mamba2-2.7b"]
+ARCHS = ["rwkv6-3b", "mamba2-2.7b", "zamba2-2.7b"]
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 TOL = 1e-5
@@ -85,8 +88,23 @@ def _rand_cache(tm, B: int, seed: int) -> dict:
 
 
 def _to_jax(cache: dict) -> dict:
-    return {name: jnp.asarray(leaf.float().numpy(), JDT[leaf.dtype])
-            for name, leaf in cache.items()}
+    """The port's flat cache as the reference's tree: the hybrid's nests
+    its trunk state and shared KV (``{"mamba": {conv, ssm},
+    "shared_kv": {k, v}}``)."""
+    out = {name: jnp.asarray(leaf.float().numpy(), JDT[leaf.dtype])
+           for name, leaf in cache.items()}
+    if "k" in out and "ssm" in out:
+        return {"mamba": {n: out[n] for n in hybrid.STATE},
+                "shared_kv": {n: out[n] for n in hybrid.KV}}
+    return out
+
+
+def _flat(tree: dict) -> dict:
+    """The reference's cache tree, flat by leaf name (the port's)."""
+    out = {}
+    for name, leaf in tree.items():
+        out.update(_flat(leaf) if isinstance(leaf, dict) else {name: leaf})
+    return out
 
 
 def _clone(cache: dict) -> dict:
@@ -129,9 +147,10 @@ def test_decode_step_matches_jax(arch):
         tl, tc = tm.decode_step(tp, tc, torch.tensor(tok), torch.tensor(pos))
         assert tl.dtype == torch.float32 and tl.shape == (3, 256)
         _close(tl, jl, f"{arch} logits, step {t}")
+        assert _flat(jc).keys() == tc.keys()
         for name in tc:
             assert tc[name].dtype == tm.cache_spec(3, 16)[name][1]
-            _close(tc[name], jc[name], f"{arch} {name}, step {t}")
+            _close(tc[name], _flat(jc)[name], f"{arch} {name}, step {t}")
 
 
 def test_rwkv6_time_mix_decode_matches_jax():
@@ -194,7 +213,16 @@ def test_prefill_step_matches_jax_and_freezes_rows_past_last(arch):
     """The chunked prefill step against the reference's (logits at each
     slot's ``last`` row and the whole cache), and each slot's state
     bitwise equal to the state after ``last + 1`` one-token decode steps
-    of the port: the rows past ``last`` stay frozen."""
+    of the port: the rows past ``last`` stay frozen.
+
+    The hybrid is held to the reference one step at a time: the port's
+    one-token step ``j`` (which its chunk equals bit for bit) against
+    the reference's decode step from the same cache, and the reference's
+    chunk at the slot whose chunk is one row.  Across steps the two
+    would compound their summation-order noise through an
+    ill-conditioned stack (``scripts/zamba2_conditioning.py``): with
+    this chunk, two steps of the JAX and the port's arithmetic part by
+    more than 1e-5 of the logits' scale."""
     jm, jp, tm, tp = _models(arch)
     c0 = _rand_cache(tm, 3, seed=5)
     tok = _tokens(3, 4, seed=6)
@@ -204,15 +232,29 @@ def test_prefill_step_matches_jax_and_freezes_rows_past_last(arch):
     tl, out = tm.prefill_step(tp, tc, torch.tensor(tok),
                               torch.tensor(_START), torch.tensor(_LAST))
     assert out is tc
-    _close(tl, jl, f"{arch} prefill logits")
-    for name in tc:
-        _close(tc[name], jc[name], f"{arch} prefill {name}")
+    synced = arch == "zamba2-2.7b"
+    if synced:              # the slot whose chunk is one row long
+        _close(tl[_LAST == 0], np.asarray(jl)[_LAST == 0],
+               f"{arch} prefill logits, row 0")
+    else:
+        _close(tl, jl, f"{arch} prefill logits")
+        for name in tc:
+            _close(tc[name], _flat(jc)[name], f"{arch} prefill {name}")
 
     steps = _clone(c0)
     per_step = []
     for j in range(4):
+        if synced:
+            jlj, jcj = jm.decode_step(jp, _to_jax(steps),
+                                      jnp.asarray(tok[:, j:j + 1]),
+                                      jnp.asarray(_START + j))
         logits, _ = tm.decode_step(tp, steps, torch.tensor(tok[:, j:j + 1]),
                                    torch.tensor(_START + j))
+        if synced:
+            _close(logits, jlj, f"{arch} step {j} logits")
+            for name in steps:
+                _close(steps[name], _flat(jcj)[name], f"{arch} step {j} "
+                       f"{name}")
         per_step.append((logits, _clone(steps)))
     bax = batch_axes_of(tm.cache_axes())
     for b, last in enumerate(_LAST):
@@ -227,7 +269,8 @@ def test_prefill_step_matches_jax_and_freezes_rows_past_last(arch):
 def test_scan_prefill_bitwise_equals_one_token_steps(arch):
     """``scan_prefill`` over C = 5 positions with every slot live is bit
     for bit five decode steps; a slot whose ``last`` is -1 is untouched
-    and a slot frozen from row 2 keeps row 2's state."""
+    and a slot frozen from row 2 keeps row 2's state (the hybrid's KV
+    leaves, appended in place, keep their bits past row 2 too)."""
     _, _, tm, tp = _models(arch)
     c0 = _rand_cache(tm, 3, seed=7)
     tok = _tokens(3, 5, seed=8)
@@ -241,15 +284,20 @@ def test_scan_prefill_bitwise_equals_one_token_steps(arch):
     last = torch.tensor([4, 2, -1])
     cache = _clone(c0)
     cfg = tm.cfg
-    mod = {"ssm": rwkv_lm, "mamba": mamba2}[cfg.family]
+    kw = {}
+    if cfg.family == "hybrid":
+        step = hybrid.scan_body(cfg, tp)
+        kw = dict(max_seq=16, in_place=hybrid.KV)
+    else:
+        mod = {"ssm": rwkv_lm, "mamba": mamba2}[cfg.family]
 
-    def step(c, t, pos):
-        new = {name: torch.empty_like(leaf) for name, leaf in c.items()}
-        return mod._decode(cfg, tp, c, t, new), new
+        def step(c, t, pos):
+            new = {name: torch.empty_like(leaf) for name, leaf in c.items()}
+            return mod._decode(cfg, tp, c, t, new), new
 
     sel, out = scan_prefill(step, cache, torch.tensor(tok), start, last,
                             logits_width=256,
-                            batch_axes=batch_axes_of(tm.cache_axes()))
+                            batch_axes=batch_axes_of(tm.cache_axes()), **kw)
     assert out is cache
     bax = batch_axes_of(tm.cache_axes())
     for b, (j, want) in enumerate([(4, seen[4][1]), (2, seen[2][1]),
@@ -322,7 +370,10 @@ def _paged_engine(arch, attn="gather", dtype="float32", B=3, **kw):
 def test_a_parked_row_is_bitwise_unchanged_by_a_tick(arch, attn):
     """A decode tick with slot 1 parked: slot 1's state row keeps its
     bits, slots 0 and 2 advance, the spare rows are untouched and only
-    the NULL row takes the parked slot's garbage."""
+    the NULL row takes the parked slot's garbage.  On the hybrid's mixed
+    pool the parked slot's KV block keeps its bits too (its table row is
+    aliased to the NULL block for the tick), slots 0 and 2 append into
+    theirs and the spare blocks are untouched."""
     eng = _paged_engine(arch, attn, B=4)
     mgr = eng.cache_mgr
     assert eng.layout.state_impl == "rows" and mgr.state_plan is not None
@@ -335,17 +386,28 @@ def test_a_parked_row_is_bitwise_unchanged_by_a_tick(arch, attn):
     rows = [int(r) for r in mgr.state.rows]
     assert rows == [1, 2, 3, NULL_ROW]
     extras = mgr.step_extras(parked=[1])
-    assert extras[0].tolist() == [1, NULL_ROW, 3, NULL_ROW]
+    assert extras[-1].tolist() == [1, NULL_ROW, 3, NULL_ROW]
+    if mgr.has_blocks:
+        assert (extras[0][1] == NULL_BLOCK).all()
+        assert torch.equal(extras[0][[0, 2]],
+                           torch.from_numpy(mgr.tables[[0, 2]]))
     eng._step_fn(eng.params, mgr.cache, *extras,
                  torch.tensor([[5], [6], [7], [0]]),
                  torch.tensor([0, 0, 0, 0]), [0] * 4)
+    blocks = {int(mgr.tables[i, 0]) for i in (0, 2)} | {NULL_BLOCK}
     for name, leaf in mgr.cache.items():
         same = [torch.equal(leaf[:, r], before[name][:, r])
                 for r in range(leaf.shape[1])]
-        assert same == [False, False, True, False, True], (name, same)
-    # Unparked, the cached upload of the row map serves the tick.
+        if name in mgr.state_plan.leaf_specs:
+            assert same == [False, False, True, False, True], (name, same)
+        else:
+            assert same == [r not in blocks for r in range(len(same))], (
+                name, same)
+    # Unparked, the cached uploads of the row map and tables serve the
+    # tick.
+    assert mgr.step_extras()[-1] is mgr.step_extras()[-1]
+    assert mgr.step_extras()[-1].tolist() == [1, 2, 3, NULL_ROW]
     assert mgr.step_extras()[0] is mgr.step_extras()[0]
-    assert mgr.step_extras()[0].tolist() == [1, 2, 3, NULL_ROW]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -364,9 +426,12 @@ def test_reused_row_starts_from_zero_state(arch):
     mgr.admit_slot(0, req)
     r0, r1 = int(mgr.state.rows[0]), int(mgr.state.rows[1])
     mgr.reset_slots([0], [0, 1])
-    for leaf in mgr.cache.values():
-        assert not leaf[:, r0].any()
-        assert (leaf[:, r1] == 3.0).all()
+    for name, leaf in mgr.cache.items():
+        if name in mgr.state_plan.leaf_specs:
+            assert not leaf[:, r0].any()
+            assert (leaf[:, r1] == 3.0).all()
+        else:                           # KV blocks are masked, not zeroed
+            assert (leaf == 3.0).all()
     mgr.check_conservation()
 
 
@@ -388,34 +453,56 @@ def test_paged_recurrent_state_zeroed_on_slot_reuse(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_state_pool_geometry_insert_and_compact(arch):
-    """The manager's geometry counts the state rows (no KV blocks for a
-    pure-state family); ``insert_slot`` copies a batch-1 state into the
-    slot's row; ``compact`` packs the held rows into the lowest ids and
-    moves their bits."""
+    """The manager's geometry counts the state rows (and, for the
+    hybrid's mixed pool, the KV blocks beside them; a pure-state family
+    has none); ``insert_slot`` copies a batch-1 state into the slot's row
+    (and its KV through the slot's table); ``compact`` packs the held
+    rows (and blocks) into the lowest ids and moves their bits."""
     eng = _paged_engine(arch, B=3)
     mgr = eng.cache_mgr
     _, _, tm, _ = _models(arch)
-    assert not mgr.has_blocks and mgr.blocks_needed(
-        Request(prompt=[1] * 9, max_new_tokens=5)) == 0
+    state, kv = mgr.state_plan.leaf_specs, mgr.plan.leaf_specs
+    assert mgr.has_blocks == bool(kv) == (arch == "zamba2-2.7b")
+    assert mgr.blocks_needed(Request(prompt=[1] * 9, max_new_tokens=5)) == (
+        4 if kv else 0)
     g = mgr.geometry
-    row_bytes = sum(int(np.prod(shape)) // 3 * dt.itemsize
-                    for shape, dt in tm.cache_spec(3, 16).values())
+    spec = tm.cache_spec(3, 16)
+    row_bytes = sum(int(np.prod(spec[name][0])) // 3 * spec[name][1].itemsize
+                    for name in state)
     assert (g["state_rows"], g["state_row_bytes"]) == (4, row_bytes)
-    assert g["state_bytes"] == g["pool_bytes"] == 4 * row_bytes
-    req = Request(prompt=[1], max_new_tokens=1)
+    assert g["state_bytes"] == 4 * row_bytes
+    blocks = g["pool_rows"] * g["block_size"] * g["token_bytes"]
+    assert g["pool_bytes"] == g["state_bytes"] + blocks
+    assert (blocks > 0) == bool(kv)
+    req = Request(prompt=[1] * 3, max_new_tokens=5)    # two blocks of 4
     for i in range(3):
         mgr.admit_slot(i, req)
     one = _rand_cache(tm, 1, seed=9)
     mgr.insert_slot(2, one)
+
+    def held_kv(i, name):
+        """Slot ``i``'s held blocks of KV leaf ``name``, as positions."""
+        leaf = mgr.cache[name]
+        rows = torch.from_numpy(mgr.tables[i, :2].astype(np.int64))
+        return leaf[:, rows].reshape(leaf.shape[0], 8, *leaf.shape[3:])
+
     for name, leaf in mgr.cache.items():
-        assert torch.equal(leaf[:, 3], one[name][:, 0])
+        if name in state:
+            assert torch.equal(leaf[:, 3], one[name][:, 0])
+        else:
+            assert torch.equal(held_kv(2, name), one[name][:, 0, :8])
     mgr.release_slot(0)
     assert mgr.state.compaction_moves() == {2: 1, 3: 2}
     mgr.compact()
     assert mgr.state.rows.tolist() == [NULL_ROW, 1, 2]
     mgr.check_conservation()
+    if kv:
+        assert mgr.tables[2, :2].tolist() == [3, 4]
     for name, leaf in mgr.cache.items():
-        assert torch.equal(leaf[:, 2], one[name][:, 0])
+        if name in state:
+            assert torch.equal(leaf[:, 2], one[name][:, 0])
+        else:
+            assert torch.equal(held_kv(2, name), one[name][:, 0, :8])
     with pytest.raises(ValueError, match="leaves"):
         mgr.insert_slot(1, {"x": torch.zeros(1)})
 
@@ -612,8 +699,11 @@ def test_serve_demo_serves_the_family_on_the_cpu(arch):
     assert len(out["finished"]) == 4 and out["ticks"] > 0
     assert out["prefill_mode"] == "chunked" and out["spec_mode"] == "off"
     assert out["degrade_reason"] is None and out["spec_off_reason"] is None
-    assert out["pool"]["state_rows"] == 4
-    assert out["pool"]["pool_bytes"] == out["pool"]["state_bytes"] > 0
+    g = out["pool"]
+    assert g["state_rows"] == 4 and g["state_bytes"] > 0
+    blocks = g["pool_rows"] * g["block_size"] * g["token_bytes"]
+    assert g["pool_bytes"] == g["state_bytes"] + blocks
+    assert (blocks > 0) == (arch == "zamba2-2.7b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
