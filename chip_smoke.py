@@ -266,8 +266,18 @@ Phases (any failure raises, and the script exits non-zero):
               (asserted), B1 / B1q launched 9 times a kernel tick, all
               on the split body, the mixed pool's block and state-row
               bytes asserted, every run's token agreement with O5
-              logged; a profile of decode ticks of each family (after
-              all three families' serving runs): ms a tick, device
+              logged; then whisper-base (6 + 6 layers; ``encdec_family``):
+              a 2-layer f32 cut card vs CPU, 8 x 1,500 frames encoded
+              (B3) into a cross K/V, ``submit`` at O0..O7 and the insert
+              door at O5, O6-gather, O6-kernel, chunk 16 and int8 (O2..O5
+              equal, asserted); the served gather step teacher-forced
+              against O5's step at the view's width within
+              ``WHISPER_GATHER_TOL``, B1 / B1q against the gather step
+              and the plain version within ``WHISPER_TF_FLOOR`` or twice
+              the plain version's drift, each bound shown below a
+              planted fault's reading; B1 6 launches a kernel tick, all
+              split; a profile of decode ticks of each family (after
+              all four families' serving runs): ms a tick, device
               busy, kernels a tick, tok/s.  It runs after
               phase 4, before phase 5: a ``torch.profiler`` session
               slows the host of its process for what follows, and this
@@ -612,6 +622,13 @@ def phase_kernel() -> tuple:
                           f"{zamba[4].tolist()})", zamba, "bf16")
     zt = time_decode(zamba)
     del zamba
+    whisper = paged_case(*WHISPER_B1, whisper_lengths(), dtype=bf, seed=9)
+    w_err, _ = check_case(f"whisper-base's decoder self-attention "
+                          f"(B={WHISPER_B1[0]} H=KV={WHISPER_B1[1]} "
+                          f"D={WHISPER_B1[3]} T={WHISPER_B1[4]} lengths="
+                          f"{whisper[4].tolist()})", whisper, "bf16")
+    wt = time_decode(whisper)
+    del whisper
 
     t = time_decode(main)
     out = {
@@ -626,8 +643,10 @@ def phase_kernel() -> tuple:
                              "cuda_core_ms", "p", "p_sweep")},
         "cuda_core_source": KERNEL_SOURCE,
         "zamba2": zamba2_entry(zt, z_err),
+        "whisper": whisper_entry(wt, w_err),
     }
-    for what, tt in (("B1 main path", t), ("B1 at zamba2's shape", zt)):
+    for what, tt in (("B1 main path", t), ("B1 at zamba2's shape", zt),
+                     ("B1 at whisper's shape", wt)):
         log(f"[kernel] {what}: kernel {tt['ms']:.4f} ms, plain "
             f"{tt['plain_ms']:.4f} ms, library (sdpa on a gathered view) "
             f"{tt['library_ms']:.4f} ms, bound {tt['bound_ms']:.4f} ms "
@@ -653,14 +672,38 @@ def zamba2_lengths() -> list:
     return lengths.tolist()
 
 
-def zamba2_entry(t: dict, err: float) -> dict:
-    """The kernels line's numbers of one kernel at zamba2's shape."""
-    B, H, KV, D, T = ZAMBA2_B1
+def shape_entry(dims, lengths, t: dict, err: float) -> dict:
+    """The kernels line's numbers of one paged kernel at a model's shape
+    (B, H, KV, D, T)."""
+    B, H, KV, D, T = dims
     return {"shape": f"B={B} H={H} KV={KV} D={D} T={T}",
-            "lengths": zamba2_lengths(), "max_abs_err": err,
+            "lengths": lengths, "max_abs_err": err,
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "wrapper_host_ms",
                                  "cuda_core_ms", "p", "p_sweep")}}
+
+
+def zamba2_entry(t: dict, err: float) -> dict:
+    return shape_entry(ZAMBA2_B1, zamba2_lengths(), t, err)
+
+
+# B1 / B1q at whisper-base's decoder self-attention (phase 11's decode):
+# B=8, H=KV=8 (group 1), D=64, T=16; lengths of phase 11's prompts (4-64)
+# plus up to its 64 new tokens.
+WHISPER_B1 = (8, 8, 8, 64, 16)
+
+
+def whisper_lengths() -> list:
+    import numpy as np
+
+    r = np.random.default_rng(30)
+    lengths = r.integers(5, 131, WHISPER_B1[0])
+    lengths[0], lengths[-1] = 5, 130
+    return lengths.tolist()
+
+
+def whisper_entry(t: dict, err: float) -> dict:
+    return shape_entry(WHISPER_B1, whisper_lengths(), t, err)
 
 
 def kv_bytes(case, n_tok: int, blocks: int) -> int:
@@ -1034,6 +1077,22 @@ def phase_quant_kernel() -> dict:
         z_err = held(f"zamba2-2.7b's shared attention (H=KV=32 D=80 T=16 "
                      f"lengths={zamba2_lengths()})", zamba, kvd)
         errs["b1"].append(z_err)
+        whisper = quant_case(paged_case(*WHISPER_B1, whisper_lengths(),
+                                        dtype=bf, seed=9), kvd)
+        w_err = held(f"whisper-base's decoder self-attention (H=KV=8 D=64 "
+                     f"T=16 lengths={whisper_lengths()})", whisper, kvd)
+        errs["b1"].append(w_err)
+        if kvd == "int8":
+            w_int8 = whisper_entry(time_decode(whisper), w_err)
+            log(f"[kernel] B1q int8 at whisper's shape: kernel "
+                f"{w_int8['ms']:.4f} ms, plain {w_int8['plain_ms']:.4f} ms, "
+                f"library (sdpa on a pre-dequantized gathered view) "
+                f"{w_int8['library_ms']:.4f} ms, bound "
+                f"{w_int8['bound_ms']:.4f} ms ({w_int8['bound_by']}); the "
+                f"wrapper's host time per call "
+                f"{w_int8['wrapper_host_ms']:.4f} ms")
+            log_bodies("B1q int8 at whisper's shape", w_int8)
+        del whisper
         if kvd == "int8":
             z_int8 = zamba2_entry(time_decode(zamba), z_err)
             log(f"[kernel] B1q int8 at zamba2's shape: kernel "
@@ -1098,6 +1157,7 @@ def phase_quant_kernel() -> dict:
                                      for k in keys} for kvd in res}
         else:
             entry["zamba2"] = z_int8
+            entry["whisper"] = w_int8
         out.append(entry)
     return out
 
@@ -1310,6 +1370,63 @@ def phase_flash_widths() -> dict:
         (q, k, v), w, "qkv")
     torch.cuda.empty_cache()
     return {"errors": errs, "grad_rel_err_head_dim_20": grad_err}
+
+
+# B3 at whisper-base's encoder: B=8 x 1,500 frames (30 s of audio), H=Hkv=8,
+# D=64, no mask.
+WHISPER_B3 = (8, 1500, 1500, 8, 8, 64)
+
+
+def phase_flash_whisper() -> dict:
+    """Phase 3c, whisper: B3 without a mask at the encoder's shape, bf16
+    (the main path's) and f32, held to its plain version and timed in
+    bf16 beside ``scaled_dot_product_attention`` (non-causal) and its
+    bound; and non-causal with fewer keys than queries (a cross-attention
+    of more decoder rows than encoder positions), bf16 and f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    errs = {}
+    name = ("whisper-base encoder B=8 S=S_kv=1500 H=Hkv=8 D=64 "
+            "non-causal")
+    for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        case = flash_case(*WHISPER_B3, dtype=dt, seed=60)
+        errs[f"{name} {kind}"] = check_flash(name, case, False, kind)
+        del case
+    cross = "cross S=448 S_kv=100 B=4 H=Hkv=8 D=64 non-causal"
+    for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        case = flash_case(4, 448, 100, 8, 8, 64, dtype=dt, seed=61)
+        errs[f"{cross} {kind}"] = check_flash(cross, case, False, kind)
+    B, S, S_kv, H, Hkv, D = WHISPER_B3
+    q, k, v = flash_case(*WHISPER_B3, dtype=torch.bfloat16, seed=60)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    res = {
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=False)),
+        "wrapper_host_ms": host_ms(
+            lambda: ops.flash_attention(q, k, v, causal=False), reps=20),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                            causal=False),
+                            reps=10),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh)),
+    }
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    flops = 4 * B * H * D * attended_pairs(S, S_kv, False)   # QK and PV
+    bound_ms, bound_by = bound(nbytes, flops)
+    out = {"shape": name + " bf16", "max_abs_err": errs[f"{name} bf16"],
+           **res, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": nbytes, "flops": flops, "errors": errs,
+           "launches": None}
+    log(f"[kernel] B3 at whisper's encoder ({out['shape']}, mma body): "
+        f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"library (sdpa, non-causal) {res['library_ms']:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} FLOP), "
+        f"{bound_ms / res['ms'] * 100:.2f}% of it; the wrapper's host time "
+        f"per call {res['wrapper_host_ms']:.4f} ms")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2094,8 +2211,20 @@ def phase_ladder(device="cuda") -> dict:
 # Phase 5: qwen3-8b at full width
 # ---------------------------------------------------------------------------
 
+def fill_rows(mgr, rows_init, B: int) -> None:
+    """Copy ``rows_init`` {name: (L, B, ...)} into the state rows of a
+    manager's slots 0..B-1 (whisper's cross K/V)."""
+    if not rows_init:
+        return
+    pool = mgr.cache["pool"] if "pool" in mgr.cache else mgr.cache
+    for b in range(B):
+        r = int(mgr.state.rows[b])
+        for name, leaf in rows_init.items():
+            pool[name][:, r] = leaf[:, b]
+
+
 def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
-                   seed=0, prefix=None) -> dict:
+                   seed=0, prefix=None, rows_init=None, planted=None) -> dict:
     """The gather step, the kernel step and the kernel step with the
     kernel's plain version in its place, fed the same tokens over the
     same random KV prefix (a different length per slot, drawn from
@@ -2103,8 +2232,12 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
     compared every tick.  The plain-version step measures how far two
     implementations that differ only in reduction order drift apart
     through this stack, which is what the kernel step is judged by.  A
-    mixed pool (zamba2) starts its state rows from zero and moves them
-    through the rows beside the tables."""
+    mixed pool (zamba2) starts its state rows from zero, or from
+    ``rows_init`` (whisper's cross K/V), and moves them through the rows
+    beside the tables.  ``planted``, a faulty stand-in for the kernel
+    with the plain version's signature, adds a fourth step that runs it
+    in the kernel's place (``planted_vs_gather``): what the gate must
+    tell from a sound kernel."""
     import numpy as np
     import torch
     from repro_torch.kernels.paged_attention import ref
@@ -2116,13 +2249,16 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
     dev = model.device
     r = np.random.default_rng(seed)
     prefix = r.integers(*(prefix or (1, max_seq - ticks)), B)
-    gather, kern, plain = mgrs = [
-        PagedCacheManager(model, B, max_seq, block_size=T) for _ in range(3)]
+    mgrs = [PagedCacheManager(model, B, max_seq, block_size=T)
+            for _ in range(3 + (planted is not None))]
+    gather, kern, plain = mgrs[:3]
     for mgr in mgrs:
         for b in range(B):
             mgr.admit_slot(b, Request(prompt=[1] * int(prefix[b]),
                                       max_new_tokens=ticks))
     assert all((m.tables == gather.tables).all() for m in mgrs)
+    for mgr in mgrs:
+        fill_rows(mgr, rows_init, B)
     g = torch.Generator(device=dev).manual_seed(seed)
     for b in range(B):
         for j in range(-(-int(prefix[b]) // T)):
@@ -2136,6 +2272,8 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
     tables, rows = extras[0], extras[1] if len(extras) > 1 else None
     by_tick = {"kernel_vs_gather": [], "plain_vs_gather": [],
                "kernel_vs_plain": []}
+    if planted is not None:
+        by_tick["planted_vs_gather"] = []
     agree = 0
     for t in range(ticks):
         toks = torch.tensor(r.integers(1, cfg.vocab, (B, 1)), device=dev)
@@ -2155,6 +2293,11 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
         try:
             lp, _ = model.paged_decode_step(params, plain.cache, *extras,
                                             toks, pos)
+            if planted is not None:
+                attention.paged_attention = planted
+                lf, _ = model.paged_decode_step(params, mgrs[3].cache,
+                                                *extras, toks, pos)
+                by_tick["planted_vs_gather"].append(_rel(lf, lg))
         finally:
             attention.paged_attention = kernel_fn
         if not all(torch.isfinite(x).all() for x in (lg, lk, lp)):
@@ -2172,13 +2315,15 @@ def teacher_forced(model, params, *, B=8, max_seq=1024, T=16, ticks=8,
 
 
 def profile_ticks(model, params, reqs, *, B, max_seq, T, pool_blocks,
-                  warm=24, ticks=8, kv_dtype="bf16") -> dict:
+                  warm=24, ticks=8, kv_dtype="bf16", match=()) -> dict:
     """Device time per decode tick by kernel name, from ``torch.profiler``
     (CUDA activity only, to keep host overhead down) over ``ticks`` ticks
     of a fresh O6-kernel engine serving ``reqs`` from a ``kv_dtype``
     pool, after ``warm`` ticks, and the device kernels launched per
-    tick.  Profiled ticks run slower on the host than unprofiled ones, so
-    the idle share read here is an upper bound."""
+    tick; ``matched`` sums the device ms per tick of the kernels whose
+    lower-cased name contains each string of ``match``.  Profiled ticks
+    run slower on the host than unprofiled ones, so the idle share read
+    here is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.optlevel import BestEffortConfig, OptLevel
@@ -2211,7 +2356,12 @@ def profile_ticks(model, params, reqs, *, B, max_seq, T, pool_blocks,
     busy = sum(by_name.values())
     paged = sum(v for k, v in by_name.items()
                 if "paged_rows_kernel" in k or "paged_split_kernel" in k)
+    matched = {m: {k: v for k, v in by_name.items() if m in k.lower()}
+               for m in match}
     return {"ticks": ticks, "after_ticks": warm, "kv_dtype": kv_dtype,
+            "matched": {m: {"ms_per_tick": sum(d.values()),
+                            "kernels": sorted(d)}
+                        for m, d in matched.items()},
             "wall_ms_per_tick": wall_ms,
             "device_ms_per_tick": busy if busy else None,
             "idle_share": 1 - busy / wall_ms if busy else None,
@@ -2709,7 +2859,8 @@ NARROW_TF_TOL = {"2": 2e-2, "deep": 0.12}
 
 
 def teacher_forced_quant(model, params, *, kvd="int8", B=8, max_seq=1024,
-                         T=16, ticks=8, seed=0, prefix=None) -> dict:
+                         T=16, ticks=8, seed=0, prefix=None,
+                         rows_init=None) -> dict:
     """The narrow kernel decode step against the same step with B1's
     plain version in its place, fed the same tokens over the same random
     KV prefix quantized per block (a different length per slot, drawn
@@ -2732,6 +2883,7 @@ def teacher_forced_quant(model, params, *, kvd="int8", B=8, max_seq=1024,
         for b in range(B):
             mgr.admit_slot(b, Request(prompt=[1] * int(prefix[b]),
                                       max_new_tokens=ticks))
+        fill_rows(mgr, rows_init, B)
     g = torch.Generator(device=dev).manual_seed(seed)
     for b in range(B):
         for j in range(-(-int(prefix[b]) // T)):
@@ -4611,12 +4763,16 @@ def hybrid_family(card: str) -> tuple:
              f"O6-chunk{RECURRENT_CHUNK}": dict(
                  kernel, prefill_chunk=RECURRENT_CHUNK),
              "O6-kernel int8": dict(kernel, kv_dtype="int8")}
+    # The chunked run (a batch-1 chunk) serves the first requests, as the
+    # recurrent families' chunked runs do, to keep the script's time.
+    chunk_mix = reqs[:RECURRENT_CHUNK_MIX[0]]
     runs, tokens = {}, {}
     for name, kw in cells.items():
+        mix = chunk_mix if name.startswith("O6-chunk") else reqs
         eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
                            config=BestEffortConfig(**kw))
         reset_launches()
-        out = serve_counted(eng, reqs)
+        out = serve_counted(eng, mix)
         launches = read_launches()
         out["body_launches"] = paged_bodies(f"11 {arch} {name}")
         no_training_kernels(f"11 {arch} {name}")
@@ -4628,7 +4784,7 @@ def hybrid_family(card: str) -> tuple:
                                  f"times (want {want}: {A} a kernel tick), "
                                  f"others {launches}")
         fin = tokens[name] = out.pop("generated")
-        if any(len(gr) != n for gr, (_, n) in zip(fin, reqs)) or any(
+        if any(len(gr) != n for gr, (_, n) in zip(fin, mix)) or any(
                 not 0 <= t < cfg.vocab for gr in fin for t in gr):
             raise AssertionError(f"11 {arch} {name}: bad tokens {fin}")
         out.update(launches=b1, prefill_mode=eng.prefill_mode,
@@ -4670,7 +4826,8 @@ def hybrid_family(card: str) -> tuple:
         raise AssertionError(f"11 {arch}: O6-gather tokens "
                              f"{tokens['O6-gather']} != O5 {want}")
     for name in runs:
-        runs[name]["equal_to_o5"] = _same_tokens(tokens[name], want)
+        runs[name]["equal_to_o5"] = _same_tokens(
+            tokens[name], want[:len(tokens[name])])
     # Prefix agreement with O5 (``kvquant.token_agreement``), logged
     # beside the int8 contract's floor, not gated: at full depth with the
     # reference's initialiser the bf16 kernel run, which differs from O5
@@ -4679,7 +4836,7 @@ def hybrid_family(card: str) -> tuple:
     contract = kvquant.tolerance_contract("int8")
     for name in runs:
         runs[name]["agreement_with_o5"] = kvquant.token_agreement(
-            want, tokens[name])
+            want[:len(tokens[name])], tokens[name])
     log(f"[11] {arch}: O6-gather tokens identical to O5's (asserted); equal "
         f"to O5 / prefix agreement: " + ", ".join(
             f"{name} {runs[name]['equal_to_o5'][0]}/"
@@ -4714,10 +4871,653 @@ def hybrid_profile(model, params, reqs) -> dict:
     return prof
 
 
+# ---------------------------------------------------------------------------
+# Phase 11, whisper-base: the encoder-decoder family served at full width
+# ---------------------------------------------------------------------------
+
+# Phase 11's whisper-base mix: 8 requests at batch 8 and max_seq 1500
+# (whisper's encoder context for 30 s of audio; the encoder length is
+# max_seq, as the reference ties it), prompts of 4-64 tokens, 64 new
+# tokens each.  O0/O1 serve the first 2 requests with 4 new tokens each.
+WHISPER_MAX_SEQ, WHISPER_PROMPTS, WHISPER_NEW = 1500, (4, 65), 64
+WHISPER_O01_MIX = (2, 4)
+# Phase 11, whisper: the O6 kernel step (B1 on the decoder's
+# self-attention) against the gather step, and on an int8 pool (B1q)
+# against its plain version, teacher-forced over the same random self
+# K/V prefix (lengths 5-130) and the encoded cross K/V, max |dlogit| /
+# max |logit| over 8 ticks: at most this, or twice what the step with
+# B1's plain version in the kernel's place drifts from the gather step.
+# The steps part by reduction order, which this random model amplifies
+# (ROADMAP C8: no qk-norm, the reference's fan-in rule).  The run also
+# puts a planted fault in the kernel's place (the plain version missing
+# each slot's newest key) and asserts that it reads above the bound.
+WHISPER_TF_FLOOR = 0.3
+# Phase 11, whisper: the served O6 gather step (the 1,504-column view at
+# T=16, the cross K/V in state rows) against O5's contiguous step on the
+# same self K/V, cross K/V and tokens with the cache zero-padded to the
+# view's width, teacher-forced, max |dlogit| / max |logit| over 8 ticks.
+# The two run the same products on the same unmasked values, so a sound
+# step reads 0; this model turns any other difference into one of the
+# logits' own scale (C8), and the run asserts that a planted fault (each
+# slot reading its neighbour's cross row) reads above the bound.  The
+# width itself (1,500 against 1,504 columns) changes cuBLAS's reduction
+# order; that reading is logged, not gated.
+WHISPER_GATHER_TOL = 1e-3
+# Phase 11, whisper: the 2-layer f32 cut's ``decode_full`` against a loop
+# of ``decode_step`` over cross K/V roped at the encoder positions and
+# kept in f32 (what ``decode_full`` computes; the served path's
+# ``build_cross_cache`` does neither, ROADMAP C12), max |dlogit| / max
+# |logit|.  The two differ only in reduction order, which the model
+# amplifies (C8): the H100 read 3.3e-4 against the served loop's 1.07
+# (PERF.md section 6); a wrong rope or cross path parts by the logits'
+# own scale.
+WHISPER_ROPED_TOL = 1e-2
+
+
+def encdec_cut(cfg, params, n: int):
+    """The config and param views of the first ``n`` encoder and decoder
+    layers."""
+    import dataclasses
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+
+    return (dataclasses.replace(cfg, n_layers=n, n_enc_layers=n),
+            dict(params, encoder=cut(params["encoder"]),
+                 decoder=cut(params["decoder"])))
+
+
+def encdec_card_vs_cpu(cfg, params, *, B=4, S=64, ticks=4, C=6) -> dict:
+    """The first two encoder and decoder layers of ``params`` (bf16 on the
+    card) in f32 on the card and on the CPU: ``encode`` of random frames;
+    then, over one cross K/V (``build_cross_cache`` of the CPU's encoder
+    states, bf16 values) and f32 caches, ``ticks`` decode steps, paged
+    steps (B1 on an f32 pool of the self K/V, the cross K/V in state
+    rows) and a ragged ``prefill_step`` chunk: the largest max |d| / max
+    |ref| of each.  The model conditions a one-ulp change of a bf16 K or
+    V element into ~1e-2 of the logits (ROADMAP C8), so the card and the
+    CPU read the same bf16 cross K/V and keep the self K/V in f32.  On the
+    card also the C12 gap: ``decode_full``'s logits against the served
+    decode loop over ``build_cross_cache`` (unroped bf16 cross K/V) and
+    against a loop over cross K/V roped at the encoder positions in f32
+    (held to ``WHISPER_ROPED_TOL``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import encdec, get_model
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rope
+    from repro_torch.serving import Request
+    from repro_torch.serving.paged import PagedCacheManager
+
+    cut_cfg, cut = encdec_cut(cfg, params, 2)
+    cut_cfg = dataclasses.replace(cut_cfg, compute_dtype="float32")
+
+    def conv(tree, dev):
+        if isinstance(tree, dict):
+            return {k: conv(v, dev) for k, v in tree.items()}
+        return tree.to(device=dev, dtype=torch.float32)
+
+    gen = torch.Generator().manual_seed(12)
+    frames = torch.randn((B, S, cfg.d_model), generator=gen) * 0.02
+    toks = torch.randint(1, cfg.vocab, (B, ticks), generator=gen)
+    chunk = torch.randint(1, cfg.vocab, (B, C), generator=gen)
+    last = torch.arange(B) % C
+    start = torch.full((B,), ticks)
+    out, c12, cross = {}, {}, None
+    for dev in ("cpu", "cuda"):
+        model = get_model(cut_cfg, device=dev)
+        p = conv(cut, dev)
+        enc = encdec.encode(cut_cfg, p, frames.to(dev))
+        if cross is None:
+            cross = {k: v.float() for k, v in
+                     encdec.build_cross_cache(cut_cfg, p, enc).items()}
+        cr = {k: v.to(dev) for k, v in cross.items()}
+        cache = encdec.init_cache(cut_cfg, B, S, device=dev,
+                                  dtype=torch.float32)
+        cache.update({k: v.clone() for k, v in cr.items()})
+        mgr = PagedCacheManager(model, B, S, block_size=16)
+        mgr.cache = {k: v.float() for k, v in mgr.cache.items()}
+        for b in range(B):
+            mgr.admit_slot(b, Request(prompt=[1] * ticks, max_new_tokens=C))
+        fill_rows(mgr, cr, B)
+        tables, rows = mgr.step_extras()
+        dec, paged = [], []
+        for t in range(ticks):
+            pos = torch.full((B,), t, device=dev)
+            lg, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev),
+                                          pos)
+            dec.append(lg.cpu())
+            lp, _ = model.paged_decode_step(p, mgr.cache, tables, rows,
+                                            toks[:, t:t + 1].to(dev), pos)
+            paged.append(lp.cpu())
+        sel, cache = model.prefill_step(p, cache, chunk.to(dev),
+                                        start.to(dev), last.to(dev))
+        out[dev] = {"encode": enc.cpu(), "decode": dec, "paged": paged,
+                    "chunk": sel.cpu(),
+                    "self": {k: cache[k].cpu() for k in encdec.SELF}}
+        if dev == "cuda":
+            h = encdec.decode_full(cut_cfg, p, toks.to(dev), enc)
+            full = (h @ p["lm_head"]).float()
+            enc_pos = torch.arange(S, device=dev)[None].expand(B, S)
+            roped = {}
+            for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
+                leaf = []
+                for l in range(2):
+                    x = attn._proj(enc, p["decoder"]["cross"][w][l])
+                    leaf.append(rope(x, enc_pos, cut_cfg.rope_theta)
+                                if name == "cross_k" else x)
+                roped[name] = torch.stack(leaf)
+            served = encdec.build_cross_cache(cut_cfg, p, enc)
+            for tag, cr in (("served", served), ("roped_f32", roped)):
+                c = encdec.init_cache(cut_cfg, B, S, device=dev,
+                                      dtype=torch.float32)
+                c.update({k: v.float().clone() for k, v in cr.items()})
+                loop = []
+                for t in range(ticks):
+                    lg, c = model.decode_step(
+                        p, c, toks[:, t:t + 1].to(dev),
+                        torch.full((B,), t, device=dev))
+                    loop.append(lg)
+                c12[tag] = _rel(torch.stack(loop, 1), full)
+        del p, model, mgr
+    return {"layers": 2, "batch": B, "frames": S, "ticks": ticks,
+            "chunk_rows": C,
+            "encode": _rel(out["cuda"]["encode"], out["cpu"]["encode"]),
+            "decode": max(_rel(a, b) for a, b in zip(out["cuda"]["decode"],
+                                                     out["cpu"]["decode"])),
+            "paged": max(_rel(a, b) for a, b in zip(out["cuda"]["paged"],
+                                                    out["cpu"]["paged"])),
+            "chunk": _rel(out["cuda"]["chunk"], out["cpu"]["chunk"]),
+            "self_kv": max(_rel(out["cuda"]["self"][k],
+                                out["cpu"]["self"][k])
+                           for k in out["cpu"]["self"]),
+            "c12_decode_full_vs_served_loop": c12["served"],
+            "c12_decode_full_vs_roped_f32_loop": c12["roped_f32"]}
+
+
+def encdec_conditioning(cfg, params, enc) -> dict:
+    """C8 at full width on the card in f32: decoder layer 0's scaled
+    attention scores over 64 random tokens (self, causal) and over 256
+    encoded frames (cross), their std and the median over (head, row) of
+    the top softmax probability."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rms_norm, rope
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    toks = torch.randint(1, cfg.vocab, (1, 64), generator=g, device="cuda")
+    lp = {k: (v[0].float() if not isinstance(v, dict)
+              else {kk: vv[0].float() for kk, vv in v.items()})
+          for k, v in params["decoder"].items()}
+    x = rms_norm(params["embedding"].float()[toks], lp["attn_norm"])
+    pos = torch.arange(64, device="cuda")[None]
+    q = rope(attn._proj(x, lp["attn"]["wq"]), pos, cfg.rope_theta)
+    k = rope(attn._proj(x, lp["attn"]["wk"]), pos, cfg.rope_theta)
+    res = {}
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = torch.ones(64, 64, dtype=torch.bool, device="cuda").tril()
+    res["self"] = {"score_std": float(s[..., mask].std()),
+                   "median_top_prob": float(torch.softmax(
+                       s.masked_fill(~mask, -1e30), -1).amax(-1).median())}
+    e = enc[:1, :256].float()
+    qc = rope(attn._proj(rms_norm(x, lp["cross_norm"]), lp["cross"]["wq"]),
+              pos, cfg.rope_theta)
+    kc = attn._proj(e, lp["cross"]["wk"])
+    sc = torch.einsum("bqhd,bkhd->bhqk", qc, kc) * scale
+    res["cross"] = {"score_std": float(sc.std()),
+                    "median_top_prob": float(torch.softmax(sc, -1).amax(-1)
+                                             .median())}
+    return res
+
+
+def served_gather_teacher_forced(model, params, cross, *, B=8, ticks=8,
+                                 seed=0, prefix=(5, 131), T=16) -> dict:
+    """The served O6 gather step itself (``layout.make_paged_fused`` over
+    a manager whose blocks hold a random self K/V prefix and whose state
+    rows hold the encoded cross K/V) against O5's contiguous
+    ``decode_step`` on the same self K/V, cross K/V and tokens, the
+    contiguous cache zero-padded to the view's width (1,504 columns at
+    T=16); max |dlogit| / max |logit| by tick.  Beside it the width
+    alone (the contiguous step at 1,500 columns against the padded one)
+    and a planted fault (the served step with each slot reading its
+    neighbour's cross row: the rows rolled by one)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Request
+    from repro_torch.serving.layout import make_paged_fused
+    from repro_torch.serving.paged import PagedCacheManager
+
+    cfg, dev = model.cfg, model.device
+    S = WHISPER_MAX_SEQ
+    r = np.random.default_rng(seed)
+    pre = r.integers(*prefix, B)
+    mgr = PagedCacheManager(model, B, S, block_size=T)
+    for b in range(B):
+        mgr.admit_slot(b, Request(prompt=[1] * int(pre[b]),
+                                  max_new_tokens=ticks))
+    fill_rows(mgr, cross, B)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for name in ("k", "v"):
+        mgr.cache[name].copy_(torch.randn(mgr.cache[name].shape,
+                                          generator=g, device=dev))
+    tables, rows = mgr.step_extras()
+    view = mgr.plan.gather(mgr.cache, tables)
+    view.update(mgr.state_plan.gather(mgr.cache, rows))
+    if not all(torch.equal(view[name], cross[name]) for name in cross):
+        raise AssertionError("11 whisper: the state rows do not hold the "
+                             "encoded cross K/V")
+    W = view["k"].shape[2]
+    narrow = {name: (leaf[:, :, :S] if name not in cross else leaf).clone()
+              for name, leaf in view.items()}
+    wide = {name: leaf.clone() for name, leaf in narrow.items()}
+    for name in ("k", "v"):
+        pad = wide[name].new_zeros(wide[name].shape[:2] + (W - S,)
+                                   + wide[name].shape[3:])
+        wide[name] = torch.cat([wide[name], pad], dim=2)
+    del view
+    planted = {name: leaf.clone() for name, leaf in mgr.cache.items()}
+    seen = []
+    fused = make_paged_fused(model, lambda lg, seeds: seen.append(lg)
+                             or lg.argmax(-1), mgr)
+    by_tick = {"served_vs_padded": [], "padded_vs_contiguous": [],
+               "planted_vs_padded": []}
+    for t in range(ticks):
+        toks = torch.tensor(r.integers(1, cfg.vocab, (B, 1)), device=dev)
+        pos = torch.tensor(pre + t, device=dev)
+        lc, narrow = model.decode_step(params, narrow, toks, pos)
+        lw, wide = model.decode_step(params, wide, toks, pos)
+        fused(params, mgr.cache, tables, rows, toks, pos, None)
+        fused(params, planted, tables, rows.roll(1), toks, pos, None)
+        ls, lf = seen[-2:]
+        if not all(torch.isfinite(x).all() for x in (lc, lw, ls, lf)):
+            raise AssertionError("11 whisper: non-finite logits")
+        by_tick["served_vs_padded"].append(_rel(ls, lw))
+        by_tick["padded_vs_contiguous"].append(_rel(lw, lc))
+        by_tick["planted_vs_padded"].append(_rel(lf, lw))
+    return {"ticks": ticks, "batch": B, "prefix": pre.tolist(),
+            "columns": [S, W], "rel_by_tick": by_tick,
+            "max_rel_logit_diff": {k: max(v) for k, v in by_tick.items()}}
+
+
+def _b1_launches(name: str, eng, cfg) -> int:
+    """B1's launches in a serving run since the last reset, asserted:
+    ``n_layers`` a decode tick on the kernel step, all on the split body,
+    none elsewhere and no other kernel."""
+    launches = read_launches()
+    paged_bodies(f"11 whisper {name}")
+    no_training_kernels(f"11 whisper {name}")
+    b1 = launches.pop("paged_attention")
+    kernel = eng.layout.name == "paged" and eng.layout.attn_impl == "kernel"
+    want = cfg.n_layers * eng.n_steps if kernel else 0
+    if b1 != want or any(launches.values()):
+        raise AssertionError(f"11 whisper {name}: B1 launched {b1} times "
+                             f"(want {want}: {cfg.n_layers} a kernel tick), "
+                             f"others {launches}")
+    return b1
+
+
+def encdec_family(card: str) -> tuple:
+    """whisper-base at its published widths and depth (6 encoder and 6
+    decoder layers): bf16 weights drawn on the card from seed 0, the
+    parameter count and the pool geometry asserted; the 2-layer f32 cut
+    card vs CPU (with the C12 gap); 8 x 1,500 frames encoded (B3) and the
+    cross K/V built; the reference's served path (``submit``, zero cross
+    K/V) at O0..O7; the insert door (``prefill`` -> the encoded cross K/V
+    into ``PrefillResult.kv_state`` -> ``insert`` -> ``generate``) at O5,
+    O6-gather, O6-kernel, O6-kernel chunk 16 and O6-kernel int8, with
+    B1 / B1q held teacher-forced.  Returns (the result, (model, params,
+    requests)) for the profile."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.optlevel import BestEffortConfig, OptLevel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+    from repro_torch.launch.serve import demo_requests
+    from repro_torch.models import encdec, get_model
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.serving import DecodeEngine, kvquant
+
+    arch = "whisper-base"
+    t_fam = time.perf_counter()
+    cfg = get_config(arch)
+    # Greedy decoding argmaxes the padded vocab (51,968 columns), as the
+    # reference's sampler does.
+    vp = padded_vocab(cfg.vocab)
+    model = get_model(cfg)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    if n_params != 109_854_720:
+        raise AssertionError(f"11 {arch}: {n_params} params, want "
+                             f"109,854,720 (the reference's model_defs)")
+    B, max_seq = RECURRENT_B, WHISPER_MAX_SEQ
+    reqs = demo_requests(cfg, B, seed=0, prompt_len=WHISPER_PROMPTS,
+                         max_new=(WHISPER_NEW, WHISPER_NEW + 1))
+    log(f"[11] {arch} {cfg.n_enc_layers} encoder + {L} decoder layers, "
+        f"d={cfg.d_model}, H=KV={cfg.n_heads}, head_dim={cfg.head_dim}, "
+        f"vocab {cfg.vocab}: {n_params} params in bf16 drawn in "
+        f"{time.perf_counter() - t0:.1f} s (asserted; the reference's "
+        f"n_params() formula {cfg.n_params():.0f}); requests: prompts "
+        f"{sorted(len(p) for p, _ in reqs)}, {WHISPER_NEW} new each, "
+        f"batch {B}, max_seq = encoder length {max_seq}")
+    res = {"arch": arch, "params": n_params, "layers": L,
+           "enc_layers": cfg.n_enc_layers,
+           "prompt_lens": [len(p) for p, _ in reqs]}
+
+    res["card_vs_cpu"] = cv = encdec_card_vs_cpu(cfg, params)
+    log(f"[11] {arch} 2-layer f32 cut, card vs CPU (batch {cv['batch']}, "
+        f"{cv['frames']} frames, {cv['ticks']} ticks, a chunk of "
+        f"{cv['chunk_rows']}): max |d| / max |ref|: encode "
+        f"{cv['encode']:.3e}, "
+        f"decode step {cv['decode']:.3e}, paged step {cv['paged']:.3e}, "
+        f"chunk {cv['chunk']:.3e}, self K/V {cv['self_kv']:.3e} (bound "
+        f"{RECURRENT_TF_TOL}); C12 on the card: decode_full vs the served "
+        f"decode loop {cv['c12_decode_full_vs_served_loop']:.3e}, vs a "
+        f"loop over roped f32 cross K/V "
+        f"{cv['c12_decode_full_vs_roped_f32_loop']:.3e} (bound "
+        f"{WHISPER_ROPED_TOL})")
+    for key in ("encode", "decode", "paged", "chunk"):
+        if not cv[key] <= RECURRENT_TF_TOL:
+            raise AssertionError(f"11 {arch}: the card's f32 {key} parts "
+                                 f"from the CPU's: {cv}")
+    if not cv["c12_decode_full_vs_roped_f32_loop"] <= WHISPER_ROPED_TOL:
+        raise AssertionError(f"11 {arch}: decode_full parts from the roped "
+                             f"f32 decode loop: {cv}")
+    torch.cuda.empty_cache()
+
+    # The encoder on 8 x 1,500 frame embeddings, then the cross K/V.
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frames = (torch.randn((B, max_seq, cfg.d_model), generator=g,
+                          device="cuda") * 0.02).to(torch.bfloat16)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encdec.encode(cfg, params, frames)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    b3 = fops.flash_attention.launches
+    b3_bodies = dict(fops.flash_attention.body_launches)
+    t0 = time.perf_counter()
+    cross = encdec.build_cross_cache(cfg, params, enc)
+    torch.cuda.synchronize()
+    t_cross = time.perf_counter() - t0
+    if b3 != cfg.n_enc_layers or b3_bodies["mma"] != b3 or not (
+            torch.isfinite(enc).all()):
+        raise AssertionError(f"11 {arch}: encode launched B3 {b3} times "
+                             f"({b3_bodies}), want {cfg.n_enc_layers} on "
+                             f"the mma body, finite")
+    if cross["cross_k"].shape != (L, B, max_seq, cfg.n_kv_heads,
+                                  cfg.head_dim) or \
+            cross["cross_k"].dtype != torch.bfloat16:
+        raise AssertionError(f"11 {arch}: cross K/V "
+                             f"{tuple(cross['cross_k'].shape)} "
+                             f"{cross['cross_k'].dtype}")
+    res["encode"] = {"frames": [B, max_seq], "wall_ms": t_enc * 1e3,
+                     "b3_launches": b3, "cross_wall_ms": t_cross * 1e3}
+    res["conditioning"] = cond = encdec_conditioning(cfg, params, enc)
+    log(f"[11] {arch} encode of {B} x {max_seq} frames: {t_enc * 1e3:.1f} "
+        f"ms wall (the first call), B3 launched {b3} times (mma body); "
+        f"build_cross_cache {t_cross * 1e3:.1f} ms; C8 at decoder layer 0 "
+        f"in f32: self scores std {cond['self']['score_std']:.2f}, median "
+        f"top probability {cond['self']['median_top_prob']:.3f}; cross "
+        f"over 256 frames std {cond['cross']['score_std']:.2f}, median "
+        f"top probability {cond['cross']['median_top_prob']:.3f}")
+    del enc, frames
+    torch.cuda.empty_cache()
+
+    # The reference's served path: submit, zero cross K/V.
+    o01 = [(p, WHISPER_O01_MIX[1]) for p, _ in reqs[:WHISPER_O01_MIX[0]]]
+    cells = {"O0": dict(level=OptLevel.O0), "O1": dict(level=OptLevel.O1),
+             "O2": dict(level=OptLevel.O2), "O3": dict(level=OptLevel.O3),
+             "O4": dict(level=OptLevel.O4), "O5": dict(level=OptLevel.O5),
+             "O6-gather": dict(level=OptLevel.O6),
+             "O6-kernel": dict(level=OptLevel.O6, paged_attn="kernel"),
+             "O7-gather": dict(level=OptLevel.O7, draft_k=4)}
+    runs, tokens = {}, {}
+    for name, kw in cells.items():
+        mix = o01 if name in ("O0", "O1") else reqs
+        eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
+                           config=BestEffortConfig(**kw),
+                           **(dict(draft_model=model, draft_params=params)
+                              if name.startswith("O7") else {}))
+        reset_launches()
+        out = serve_counted(eng, mix)
+        out["launches"] = _b1_launches(name, eng, cfg)
+        fin = tokens[name] = out.pop("generated")
+        if any(len(gr) != n for gr, (_, n) in zip(fin, mix)) or any(
+                not 0 <= t < vp for gr in fin for t in gr):
+            raise AssertionError(f"11 {arch} {name}: bad tokens {fin}")
+        if name.startswith("O7") and (
+                eng.spec_mode != "off"
+                or "no verify step" not in eng.spec_off_reason):
+            raise AssertionError(f"11 {arch} O7: spec_mode {eng.spec_mode}, "
+                                 f"{eng.spec_off_reason}")
+        out.update(prefill_mode=eng.prefill_mode, spec_mode=eng.spec_mode,
+                   state_impl=eng.layout.state_impl,
+                   attn_impl=eng.layout.attn_impl)
+        if eng.layout.name == "paged":
+            out["pool"] = eng.cache_mgr.geometry
+        runs[name] = out
+        log(f"[11] {arch} submit {name} on {card}: {out['tokens']} tokens "
+            f"in {out['ticks']} ticks / {out['wall_s']:.3f} s = "
+            f"{out['tok_per_s']:.1f} tok/s, {out['ms_per_tick']:.2f} "
+            f"ms/tick, TTFT ticks {max(out['ttft_ticks'])} (max); state "
+            f"{eng.layout.state_impl}, spec {eng.spec_mode}, B1 launches "
+            f"{out['launches']}")
+        del eng
+        torch.cuda.empty_cache()
+
+    g = runs["O6-kernel"]["pool"]
+    kv_token = L * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    row = L * 2 * max_seq * cfg.n_kv_heads * cfg.head_dim * 2
+    if (g["token_bytes"], g["state_row_bytes"], g["state_rows"]) != (
+            kv_token, row, B + 1) or (kv_token, row) != (12_288, 18_432_000):
+        raise AssertionError(f"11 {arch}: geometry {g}, want {kv_token} B a "
+                             f"token in blocks and {row} B a cross row")
+    log(f"[11] {arch} pool: {g['pool_rows']} block rows of "
+        f"{g['block_size']} x {g['token_bytes']} B a token (self K/V) + "
+        f"{g['state_rows']} state rows of {g['state_row_bytes']} B (cross "
+        f"K/V, never blocks, never quantized) = {g['pool_mb']:.1f} MiB "
+        f"(asserted)")
+
+    want = tokens["O5"]
+    for name in ("O2", "O3", "O4"):
+        if tokens[name] != want:
+            raise AssertionError(f"11 {arch}: {name} tokens "
+                                 f"{tokens[name]} != O5 {want}")
+
+    # The served gather step held to O5's contiguous step at the view's
+    # width, teacher-forced over the encoded cross K/V (gated, with a
+    # planted fault that must exceed the bound), and the width alone
+    # beside it (logged).
+    width = served_gather_teacher_forced(model, params, cross)
+    width["parted"] = []
+    rel = width["rel_by_tick"]
+    log(f"[11] {arch} the served O6 gather step ({width['columns'][1]}-"
+        f"column view, cross K/V in state rows) against O5's contiguous "
+        f"step over the same data zero-padded to {width['columns'][1]} "
+        f"columns, teacher-forced over {width['ticks']} ticks, max "
+        f"|dlogit| / max |logit| by tick: "
+        + " ".join(f"{x:.2e}" for x in rel["served_vs_padded"])
+        + f" (bound {WHISPER_GATHER_TOL}); planted fault (each slot reads "
+        f"its neighbour's cross row): "
+        + " ".join(f"{x:.2e}" for x in rel["planted_vs_padded"])
+        + f" (must exceed the bound); the width alone (O5's step at "
+        f"{width['columns'][0]} columns against the padded one): "
+        + " ".join(f"{x:.2e}" for x in rel["padded_vs_contiguous"]))
+    worst = width["max_rel_logit_diff"]
+    if not worst["served_vs_padded"] <= WHISPER_GATHER_TOL:
+        raise AssertionError(f"11 {arch}: the served gather step parts "
+                             f"from O5's step: {width}")
+    if not worst["planted_vs_padded"] > WHISPER_GATHER_TOL:
+        raise AssertionError(f"11 {arch}: the planted cross-row fault "
+                             f"stays within the gather bound: {width}")
+
+    def gather_equal(tag, name, got, ref) -> None:
+        """A gather run's tokens equal O5's, or, where the 1,504-column
+        view parts them in bf16, the step held teacher-forced above."""
+        if got != ref:
+            log(f"[11] {arch} {tag} {name}: tokens part from O5's "
+                f"({_same_tokens(got, ref)}); held teacher-forced above")
+            width["parted"].append(f"{tag} {name}")
+
+    for name in ("O6-gather", "O7-gather"):
+        gather_equal("submit", name, tokens[name], want)
+    for name in runs:
+        n = len(tokens[name])
+        ref = [w[:len(t)] for w, t in zip(want[:n], tokens[name])]
+        runs[name]["equal_to_o5"] = _same_tokens(tokens[name], ref)
+        runs[name]["agreement_with_o5"] = kvquant.token_agreement(
+            ref, tokens[name])
+    log(f"[11] {arch} submit: O2..O4 tokens identical to O5's (asserted); "
+        f"equal to O5 / prefix agreement: " + ", ".join(
+            f"{name} {runs[name]['equal_to_o5'][0]}/"
+            f"{runs[name]['equal_to_o5'][1]} / "
+            f"{runs[name]['agreement_with_o5']:.3f}" for name in runs)
+        + " (O0/O1 at M = 1: C6; O6-kernel: C8; logged, not gated)")
+    res["submit"] = runs
+
+    # B1 / B1q teacher-forced over the encoded cross K/V.
+    def drop_newest(q, k_pool, v_pool, tables, lengths, **kw):
+        """A planted fault: B1's plain version missing each slot's newest
+        key (an off-by-one in the length)."""
+        return paged_ref.paged_attention_ref(q, k_pool, v_pool, tables,
+                                             lengths - 1, **kw)
+
+    kw = dict(B=B, max_seq=max_seq, prefix=(5, 131), rows_init=cross)
+    tf = teacher_forced(model, params, planted=drop_newest, **kw)
+    tfq = teacher_forced_quant(model, params, kvd="int8", **kw)
+    res["teacher_forced"] = {"bf16": tf, "int8": tfq}
+    bound = max(WHISPER_TF_FLOOR,
+                2 * tf["max_rel_logit_diff"]["plain_vs_gather"])
+    res["teacher_forced_bound"] = bound
+    ticks = {f"bf16 {k}": v for k, v in tf["rel_by_tick"].items()}
+    ticks["int8 kernel_vs_plain"] = tfq["rel_by_tick"]
+    log(f"[11] {arch} teacher-forced, {tf['ticks']} ticks at batch {B} "
+        f"(prefixes {tf['prefix']}, encoded cross K/V), max |dlogit| / max "
+        f"|logit| by tick: "
+        + "; ".join(f"{k} " + " ".join(f"{x:.2e}" for x in v)
+                    for k, v in ticks.items())
+        + f" (bound {bound:.3e}); argmax kernel vs gather agree "
+        f"{tf['argmax_agree']}/{tf['argmax_total']}, int8 kernel vs plain "
+        f"{tfq['argmax_agree']}/{tfq['argmax_total']}")
+    for key in ("bf16 kernel_vs_gather", "int8 kernel_vs_plain"):
+        if not max(ticks[key]) <= bound:
+            raise AssertionError(f"11 {arch}: teacher-forced {key} "
+                                 f"{ticks[key]} beyond {bound}")
+    if not max(ticks["bf16 planted_vs_gather"]) > bound:
+        raise AssertionError(f"11 {arch}: the planted B1 fault (newest key "
+                             f"dropped) stays within the bound {bound}: "
+                             f"{ticks['bf16 planted_vs_gather']}")
+    torch.cuda.empty_cache()
+
+    # The insert door: prefill -> cross K/V -> insert -> generate.
+    kernel = dict(level=OptLevel.O6, paged_attn="kernel")
+    cells = {"O5": dict(level=OptLevel.O5),
+             "O6-gather": dict(level=OptLevel.O6),
+             "O6-kernel": kernel,
+             f"O6-chunk{RECURRENT_CHUNK}": dict(
+                 kernel, prefill_chunk=RECURRENT_CHUNK),
+             "O6-kernel int8": dict(kernel, kv_dtype="int8")}
+    ins, itok = {}, {}
+    for name, kw in cells.items():
+        eng = DecodeEngine(model, params, batch_size=B, max_seq=max_seq,
+                           config=BestEffortConfig(**kw))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        objs = []
+        for k, (p, n) in enumerate(reqs):
+            r = eng.prefill(p, max_new_tokens=n)
+            for leaf in ("cross_k", "cross_v"):
+                r.kv_state[leaf] = cross[leaf][:, k:k + 1]
+            eng.insert(r)
+            objs.append(r.request)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        eng.generate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fin = itok[name] = [list(r.generated) for r in objs]
+        if any(len(gr) != n for gr, (_, n) in zip(fin, reqs)) or any(
+                not 0 <= t < vp for gr in fin for t in gr):
+            raise AssertionError(f"11 {arch} insert {name}: bad tokens "
+                                 f"{fin}")
+        toks = sum(len(gr) for gr in fin)
+        out = {"ticks": eng.n_steps, "prefill_s": t_pre, "wall_s": wall,
+               "tokens": toks, "tok_per_s": toks / wall,
+               "ms_per_tick": (wall - t_pre) / max(eng.n_steps, 1) * 1e3,
+               "launches": _b1_launches(f"insert {name}", eng, cfg),
+               "kv_dtype": kw.get("kv_dtype", "bf16")}
+        ins[name] = out
+        log(f"[11] {arch} insert {name} on {card}: 8 prefills "
+            f"{t_pre:.2f} s, then {toks} tokens in {out['ticks']} ticks, "
+            f"{out['ms_per_tick']:.2f} ms/tick, {wall:.2f} s in all; B1 "
+            f"launches {out['launches']}")
+        del eng
+        torch.cuda.empty_cache()
+    want = itok["O5"]
+    gather_equal("insert", "O6-gather", itok["O6-gather"], want)
+    if itok["O5"] == tokens["O5"]:
+        raise AssertionError(f"11 {arch}: the inserted cross K/V left the "
+                             f"tokens of a zero cross K/V")
+    for name in ins:
+        ins[name]["equal_to_o5"] = _same_tokens(itok[name], want)
+        ins[name]["agreement_with_o5"] = kvquant.token_agreement(
+            want, itok[name])
+    contract = kvquant.tolerance_contract("int8")
+    log(f"[11] {arch} insert: tokens differ from the zero-cross run's "
+        f"(asserted); equal to O5 / prefix agreement: " + ", ".join(
+            f"{name} {ins[name]['equal_to_o5'][0]}/"
+            f"{ins[name]['equal_to_o5'][1]} / "
+            f"{ins[name]['agreement_with_o5']:.3f}" for name in ins)
+        + f" (int8 contract floor {contract['min_agreement']}, not gated: "
+        f"C8)")
+    res["insert"] = ins
+    res["width"] = width
+    res["wall_s"] = time.perf_counter() - t_fam
+    del cross
+    torch.cuda.empty_cache()
+    return res, (model, params, reqs)
+
+
+def encdec_profile(model, params, reqs) -> dict:
+    """A profile of whisper's O6-kernel decode ticks (submitted, zero
+    cross K/V; the same work as an encoded one): B1 launched 6 times a
+    tick (asserted), and the cross-row gather's device time."""
+    L = model.cfg.n_layers
+    reset_launches()
+    prof = profile_ticks(model, params, reqs, B=RECURRENT_B,
+                         max_seq=WHISPER_MAX_SEQ, T=16, pool_blocks=0,
+                         warm=8, ticks=4, match=("indexselect",))
+    launches = read_launches()
+    b1 = launches.pop("paged_attention")
+    if not b1 or b1 % L or any(launches.values()):
+        raise AssertionError(f"11 whisper: the profiled ticks launched "
+                             f"{read_launches()}")
+    prof["b1_launches"] = b1
+    log_profile("[11] whisper-base", prof)
+    m = prof["matched"]["indexselect"]
+    log(f"[11] whisper-base: the cross-row gather (index_select kernels "
+        f"{m['kernels']}) {m['ms_per_tick']:.4f} ms/tick of device time")
+    if prof["device_ms_per_tick"] is not None:
+        tok_s = RECURRENT_B / prof["wall_ms_per_tick"] * 1e3
+        log(f"[11] whisper-base: {tok_s:.1f} tok/s at batch {RECURRENT_B} "
+            f"in the profiled ticks")
+    return prof
+
+
 def phase_recurrent(card: str) -> dict:
     """Phase 11: rwkv6-3b and mamba2-2.7b served at full width and depth
-    (``recurrent_family``), then zamba2-2.7b (``hybrid_family``), one
-    after the other, all kept on the card; then all three profiled.  A
+    (``recurrent_family``), then zamba2-2.7b (``hybrid_family``) and
+    whisper-base (``encdec_family``), one after the other, all kept on
+    the card; then all four profiled.  A
     ``torch.profiler`` session leaves the host of its process ~1.2x
     slower for what follows (PERF.md section 6), and this phase is
     host-bound, so it runs before any phase that profiles and its own
@@ -4728,10 +5528,13 @@ def phase_recurrent(card: str) -> dict:
     for arch in ("rwkv6-3b", "mamba2-2.7b"):
         res[arch], kept[arch] = recurrent_family(arch, card)
     res["zamba2-2.7b"], hybrid = hybrid_family(card)
+    res["whisper-base"], whisper = encdec_family(card)
     for arch, (model, params, reqs) in kept.items():
         res[arch]["profile"] = recurrent_profile(arch, model, params, reqs)
     res["zamba2-2.7b"]["profile"] = hybrid_profile(*hybrid)
     del hybrid
+    res["whisper-base"]["profile"] = encdec_profile(*whisper)
+    del whisper
     # What a profiler session costs the host: O5 served again, after it.
     from repro_torch.core.optlevel import BestEffortConfig, OptLevel
     from repro_torch.serving import DecodeEngine
@@ -4805,6 +5608,7 @@ def main() -> int:
     b1q, b2q = timed("3g", phase_quant_kernel)
     b3 = timed("3c", phase_flash_kernel)
     b3["widths"] = timed("3c widths", phase_flash_widths)
+    b3["whisper_encoder"] = timed("3c whisper", phase_flash_whisper)
     b4 = timed("3d", phase_wkv_kernel)
     b5 = timed("3e", phase_ssd_kernel)
     b6, b7 = timed("3f", phase_matmul_kernel)
@@ -4843,6 +5647,15 @@ def main() -> int:
     b1["launches_by_run"].update(
         {f"11 zamba2 {run}": zruns[run]["launches"]
          for run in ("O6-kernel", f"O6-chunk{RECURRENT_CHUNK}")})
+    # whisper-base's decoder self-attention in phase 11: B1 in its bf16
+    # O6-kernel runs (submit and insert, and the insert chunked run), B1q
+    # in its int8 insert run; B3 in its encoder.
+    wh = recurrent["whisper-base"]
+    b1["launches_by_run"].update({
+        "11 whisper submit O6-kernel": wh["submit"]["O6-kernel"]["launches"],
+        **{f"11 whisper insert {run}": wh["insert"][run]["launches"]
+           for run in ("O6-kernel", f"O6-chunk{RECURRENT_CHUNK}")}})
+    b1["whisper"]["launches"] = wh["insert"]["O6-kernel"]["launches"]
     # The quantized branch on its main path: phase 5f's narrow runs (not
     # its bf16 batch-16 run), B1q in the int8 run (b), B2q in the int8
     # run (d).
@@ -4857,9 +5670,14 @@ def main() -> int:
             k[f"launches_{body}"] = count
     b1q["launches_by_run"]["11 zamba2 O6-kernel int8"] = \
         zruns["O6-kernel int8"]["launches"]
+    b1q["launches_by_run"]["11 whisper insert O6-kernel int8"] = \
+        b1q["whisper"]["launches"] = \
+        wh["insert"]["O6-kernel int8"]["launches"]
     # B3 on its main path: phase 6's train() run, by body.
     b3["launches"] = trained["launches"]["flash_attention"]
-    b3["launches_by_run"] = {"train": b3["launches"]}
+    b3["launches_by_run"] = {"train": b3["launches"],
+                             "11 whisper encode": wh["encode"]["b3_launches"]}
+    b3["whisper_encoder"]["launches"] = wh["encode"]["b3_launches"]
     for body, count in trained["body_launches"]["flash_attention"].items():
         b3[f"launches_{body}"] = count
     # B4 on its main path: phase 7's train() run.

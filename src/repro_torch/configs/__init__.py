@@ -1,9 +1,10 @@
 """Config registry of the port: only the archs it runs — qwen3-8b,
 smollm-360m (its speculative drafter, and the training CLI's default),
-rwkv6-3b and mamba2-2.7b (trained), and zamba2-2.7b (served)."""
+rwkv6-3b and mamba2-2.7b (trained), zamba2-2.7b and whisper-base
+(served)."""
 
 from repro_torch.configs import (mamba2_2p7b, qwen3_8b, rwkv6_3b,
-                                 smollm_360m, zamba2_2p7b)
+                                 smollm_360m, whisper_base, zamba2_2p7b)
 from repro_torch.configs.base import (ArchConfig, SHAPES,  # noqa: F401
                                       ShapeConfig)
 
@@ -13,6 +14,7 @@ _MODULES = {
     "rwkv6-3b": rwkv6_3b,
     "mamba2-2.7b": mamba2_2p7b,
     "zamba2-2.7b": zamba2_2p7b,
+    "whisper-base": whisper_base,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -1,14 +1,16 @@
 """Architecture and shape configs (port copy of the fields it reads).
 
 The fields of ``repro/configs/base.py::ArchConfig`` that the serving
-and training paths of the dense, rwkv6, mamba2 and hybrid (zamba2)
-families read, with the same names and defaults, and
-``ShapeConfig``/``SHAPES``.
+and training paths of the dense, rwkv6, mamba2, hybrid (zamba2) and
+enc-dec (whisper) families read, with the same names and defaults, the
+parameter count ``n_params`` and ``ShapeConfig``/``SHAPES``.
 The reference's sharding and scan knobs (``constrain`` axes,
 ``unroll_layers``) have no counterpart: the port runs on one device and
 loops over layers in Python.  Families and features outside the port
-(MoE, enc-dec, relu2 MLPs) are rejected by the model code, not
-silently ignored.
+(MoE, relu2 MLPs, vision patches) are rejected by the model code, not
+silently ignored.  The reference's ``frontend`` field is not copied:
+nothing reads it (its data pipeline picks an audio batch's ``frames``
+by family, as ``model_zoo.input_specs`` does here).
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import dataclasses
 class ArchConfig:
     name: str
     family: str                  # dense | ssm (rwkv6) | mamba (mamba2) |
-                                 # hybrid (zamba2); each serves, and
-                                 # each but hybrid trains on the card
+                                 # hybrid (zamba2) | audio (whisper);
+                                 # each serves, and dense, ssm and mamba
+                                 # train on the card
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,6 +46,8 @@ class ArchConfig:
     attn_every: int = 0
     # RWKV (family "ssm")
     rwkv_head_dim: int = 64
+    # Enc-dec (family "audio", whisper): > 0 => encoder-decoder backbone.
+    n_enc_layers: int = 0
     # Numerics / memory.  Serving stores params in ``compute_dtype`` (the
     # reference keeps f32 and casts per use: the same bits, half the
     # memory); training keeps ``param_dtype`` masters and casts them once
@@ -60,6 +65,45 @@ class ArchConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
+
+    def n_params(self) -> float:
+        """Total parameter count (embedding + blocks + head) of the
+        attention families, the reference's formula: the vocab unpadded,
+        the final norm not counted, the attention norms counted per
+        block, an enc-dec's encoder and cross-attention included.  The
+        other families' terms are not ported: count their
+        ``model_defs``."""
+        if self.n_experts or self.family not in ("dense", "audio"):
+            raise NotImplementedError(
+                f"{self.name}: the parameter count of family "
+                f"{self.family!r} (n_experts {self.n_experts}) is not "
+                f"ported; sum the shapes of its model_defs")
+        d, L, V = self.d_model, self.n_layers, self.vocab
+        emb = 2 * V * d  # untied in/out
+        total = L * (_attn_params(self) + _mlp_params(self))
+        if self.is_encdec:
+            enc = self.n_enc_layers * (_attn_params(self) + _mlp_params(self))
+            dec_cross = self.n_layers * _attn_params(self)  # cross-attn
+            total = total + enc + dec_cross
+        return emb + total
+
+
+def _attn_params(c: ArchConfig) -> float:
+    dh = c.head_dim
+    return (
+        c.d_model * c.n_heads * dh            # q
+        + 2 * c.d_model * c.n_kv_heads * dh   # k, v
+        + c.n_heads * dh * c.d_model          # o
+        + 2 * c.d_model                       # norms
+    )
+
+
+def _mlp_params(c: ArchConfig) -> float:
+    return 3 * c.d_model * c.d_ff             # swiglu
 
 
 # ---------------------------------------------------------------------------

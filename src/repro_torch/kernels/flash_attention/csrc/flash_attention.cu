@@ -11,7 +11,8 @@
 // by block:
 //
 //   q   (B, S, H, D)       f32
-//   k/v (B, S_kv, Hkv, D)  f32, H % Hkv == 0, S_kv >= S
+//   k/v (B, S_kv, Hkv, D)  f32, H % Hkv == 0, S_kv >= S under causal
+//   (non-causal: any S_kv >= 1; every row attends all S_kv keys)
 //   out (B, S, H, D)       f32
 //
 // Query head h of batch b reads kv head h / (H / Hkv): the TPU kernel's
@@ -344,15 +345,18 @@ int launch_width(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes): f32 q, k, v and out,
-// 1 <= dh <= 256.  Returns cudaGetLastError() after the launch: 0 on
-// success.
+// 1 <= dh <= 256, Skv >= S under causal (any Skv >= 1 without).
+// Returns cudaGetLastError() after the launch: 0 on success.
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* out, int B,
                                        int S, int Skv, int H, int Hkv, int dh,
                                        int causal, float scale,
                                        void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || Skv < S || dh < 1 || dh > 256)
+  // A causal row r attends keys <= r + Skv - S, so Skv >= S; a non-causal
+  // row attends all Skv keys, whatever S is.
+  if (Hkv <= 0 || H % Hkv != 0 || Skv < (causal ? S : 1) || dh < 1 ||
+      dh > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_width(q, k, v, out, B, S, Skv, H, Hkv, dh, causal, scale,
                       static_cast<cudaStream_t>(stream));

@@ -10,7 +10,8 @@
 // cores, where TF32 would break its 1e-5 tolerance):
 //
 //   q   (B, S, H, D)       bf16
-//   k/v (B, S_kv, Hkv, D)  bf16, H % Hkv == 0, S_kv >= S
+//   k/v (B, S_kv, Hkv, D)  bf16, H % Hkv == 0, S_kv >= S under causal
+//   (non-causal: any S_kv >= 1; every row attends all S_kv keys)
 //   out (B, S, H, D)       bf16
 //
 // What it computes is the CUDA-core body's function: query head h of
@@ -451,15 +452,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes): bf16 q, k, v and out,
-// 1 <= dh <= 256.  Returns cudaGetLastError() after the launch: 0 on
-// success.
+// 1 <= dh <= 256, Skv >= S under causal (any Skv >= 1 without).
+// Returns cudaGetLastError() after the launch: 0 on success.
 extern "C" int flash_attention_mma_forward(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int S, int Skv, int H, int Hkv,
                                            int dh, int causal, float scale,
                                            void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || Skv < S || dh < 1 || dh > 256)
+  // A causal row r attends keys <= r + Skv - S, so Skv >= S; a non-causal
+  // row attends all Skv keys, whatever S is.
+  if (Hkv <= 0 || H % Hkv != 0 || Skv < (causal ? S : 1) || dh < 1 ||
+      dh > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = dh % 8 == 0 && reinterpret_cast<size_t>(q) % 16 == 0 &&

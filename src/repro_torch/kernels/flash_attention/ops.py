@@ -39,20 +39,26 @@ _MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65_535
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, causal: bool) -> None:
     """Raise unless these operands are B3's: q (B, S, H, D), k and v
-    (B, S_kv, Hkv, D), H % Hkv == 0, S_kv >= S, one float dtype, one
-    device."""
+    (B, S_kv, Hkv, D), H % Hkv == 0, S_kv >= S under a causal mask (a
+    non-causal row attends all S_kv keys, so any S_kv >= 1 will do), one
+    float dtype, one device."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, S, H, D) and k, v (B, S_kv, Hkv, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, S, H, D = q.shape
     Bk, S_kv, Hkv, Dk = k.shape
-    if Bk != B or Dk != D or Hkv == 0 or H % Hkv != 0 or S_kv < S:
+    if Bk != B or Dk != D or Hkv == 0 or H % Hkv != 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} (want equal B and D, H % Hkv "
-                         f"== 0, S_kv >= S)")
+                         f"== 0)")
+    if S_kv < (S if causal else 1):
+        want = "a causal call wants S_kv >= S" if causal else \
+            "a non-causal call wants S_kv >= 1"
+        raise ValueError(f"q {tuple(q.shape)} against k {tuple(k.shape)}: "
+                         f"{want}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype} "
                         f"(bf16 or f32, all alike)")
@@ -139,8 +145,9 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                     block_k: int = 128, q_chunk: int = 1024):
-    """q: (B, S, H, D); k, v: (B, S_kv, Hkv, D) with H % Hkv == 0 and
-    S_kv >= S, bf16 or f32 alike.
+    """q: (B, S, H, D); k, v: (B, S_kv, Hkv, D) with H % Hkv == 0 and,
+    with ``causal``, S_kv >= S (without, any S_kv: the encoder's and a
+    cross-attention's rows attend every key), bf16 or f32 alike.
 
     Returns (B, S, H, D) in q's dtype: softmax attention in f32 with an
     f32 scale ``1 / sqrt(D)``, query head h reading kv head
@@ -155,7 +162,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     above; on CPU tensors the plain version runs.  Differentiable in q,
     k and v.
     """
-    _check(q, k, v)
+    _check(q, k, v, causal)
     if min(block_q, block_k, q_chunk) < 1:
         raise ValueError(f"block_q {block_q}, block_k {block_k} and "
                          f"q_chunk {q_chunk} must be positive")

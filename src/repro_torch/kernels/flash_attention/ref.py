@@ -23,8 +23,9 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """q (B, S, H, D); k, v (B, S_kv, Hkv, D), H % Hkv == 0, S_kv >= S.
-    Returns (B, S, H, D) in q's dtype."""
+    """q (B, S, H, D); k, v (B, S_kv, Hkv, D), H % Hkv == 0, S_kv >= S
+    under a causal mask (any S_kv without one).  Returns (B, S, H, D) in
+    q's dtype."""
     B, S, H, D = q.shape
     S_kv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv

@@ -1,11 +1,12 @@
-"""Attention: GQA with rope / qk-norm — causal self-attention over the
-whole sequence for training (``attention``, kernel B3), and for serving
-against a KV cache, dense (contiguous or gathered view) or straight off
-a paged pool, for one token per slot (decode) or a window of C tokens
-per slot (chunked prefill, speculative verify).
+"""Attention: GQA with rope / qk-norm — self- or cross-attention over
+the whole sequence for training and the encoder (``attention``, kernel
+B3), and for serving against a KV cache, dense (contiguous or gathered
+view) or straight off a paged pool, for one token per slot (decode) or a
+window of C tokens per slot (chunked prefill, speculative verify).
 
 Port of ``repro/models/attention.py`` (``attn_defs``, ``attention`` for
-causal self-attention, ``decode_attention``,
+self-attention, causal or not, and cross-attention, ``decode_attention``
+with its read-only ``cross`` form,
 ``chunk_prefill_attention``, ``paged_decode_attention`` and
 ``paged_chunk_prefill_attention``, on bf16 pools and on narrow int8 /
 fp8 pools with per-block scales).  ``attention``'s rounding sites are
@@ -97,31 +98,45 @@ def _chunk_rows(S: int, q_chunk: int) -> int:
 
 def attention(params, x, positions, *, n_heads, n_kv, head_dim,
               causal=True, qk_norm=False, rope_theta=1e4, q_chunk=1024,
-              kv_x=None, scores_dtype=torch.float32):
-    """Multi-head self-attention over the whole sequence (the training
-    forward).  x: (B, S, d); positions: (B, S), rope's angles.
+              kv_x=None, kv_positions=None, scores_dtype=torch.float32):
+    """Multi-head attention over the whole sequence (the training forward
+    and the encoder).  x: (B, S, d); positions: (B, S), rope's angles.
+
+    ``kv_x`` (B, S_kv, d) switches to cross-attention, the reference's
+    branch: q from ``x``, k and v from ``kv_x``; q is roped at
+    ``positions``, and k at ``kv_positions`` (B, S_kv) only when they are
+    given.
 
     Its core is kernel B3 (``kernels.flash_attention.ops``): the CUDA
     kernel on a CUDA tensor, its plain version on a CPU one.  The causal
     mask is by sequence index — row i attends keys ``<= i`` — which is
     the reference's position mask for the positions ``forward`` passes
-    (``arange(S)`` on every row).  B3 keeps scores and probabilities in
-    f32 and rounds once, at its output; the reference's bf16 einsums
-    round the scores and the probabilities to the compute dtype first,
-    so bf16 agreement with it is held to a tolerance (f32 is tight).
-    The backward recomputes ``q_chunk``-row chunks, the reference's
-    per-chunk ``jax.checkpoint``.  Returns (B, S, d).
+    (``arange(S)`` on every row); a non-causal call (the encoder, a
+    cross-attention) attends every key, whatever S_kv is beside S.  B3
+    keeps scores and probabilities in f32 and rounds once, at its
+    output; the reference's bf16 einsums round the scores and the
+    probabilities to the compute dtype first, so bf16 agreement with it
+    is held to a tolerance (f32 is tight).  The backward recomputes
+    ``q_chunk``-row chunks, the reference's per-chunk
+    ``jax.checkpoint``.  Returns (B, S, d).
     """
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_x) is not ported yet (ROADMAP A11, "
-            "whisper)")
     if scores_dtype != torch.float32:
         raise NotImplementedError(
             f"scores_dtype {scores_dtype} is not ported yet (the §Perf "
             f"bf16-logits knob; ROADMAP A14)")
-    q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm,
-                           rope_theta=rope_theta)
+    if kv_x is None:
+        q, k, v = _project_qkv(params, x, positions, qk_norm=qk_norm,
+                               rope_theta=rope_theta)
+    else:
+        q = _proj(x, params["wq"])
+        k = _proj(kv_x, params["wk"])
+        v = _proj(kv_x, params["wv"])
+        if qk_norm:
+            q = rms_norm(q, params["q_norm"])
+            k = rms_norm(k, params["k_norm"])
+        q = rope(q, positions, rope_theta)
+        if kv_positions is not None:
+            k = rope(k, kv_positions, rope_theta)
     o = flash_attention(q, k, v, causal=causal,
                         q_chunk=_chunk_rows(x.shape[1], q_chunk))
     return _out_proj(o, params["wo"])
@@ -138,10 +153,12 @@ def _window_rows(x, positions):
     return x.gather(1, src)
 
 
-def _dense_attend(q, ck, cv, positions, wo, *, n_heads, n_kv, head_dim):
+def _dense_attend(q, ck, cv, positions, wo, *, n_heads, n_kv, head_dim,
+                  masked=True):
     """Attention of q (B, T, H, dh) at ``positions`` (B, T) against a
-    dense cache (B, S, KV, dh), positions past each row's own masked.
-    Returns (B, T, d)."""
+    dense cache (B, S, KV, dh), positions past each row's own masked
+    (``masked=False``, a cross-attention, attends them all).  Returns
+    (B, T, d)."""
     B, T = positions.shape
     dt = q.dtype
     group = n_heads // n_kv
@@ -151,10 +168,11 @@ def _dense_attend(q, ck, cv, positions, wo, *, n_heads, n_kv, head_dim):
     qg = qg.reshape(B, n_kv, group * T, head_dim)
     s = qg @ ck.to(dt).permute(0, 2, 3, 1)                # (B, KV, G*T, S)
     s = s.float() * kernel_scale(head_dim, dt)         # the kernel's scale
-    valid = (torch.arange(S, device=q.device)[None, None]
-             <= positions[:, :, None])                    # (B, T, S)
-    valid = valid[:, None, None].expand(B, 1, group, T, S)
-    s = torch.where(valid.reshape(B, 1, group * T, S), s, NEG_INF)
+    if masked:
+        valid = (torch.arange(S, device=q.device)[None, None]
+                 <= positions[:, :, None])                # (B, T, S)
+        valid = valid[:, None, None].expand(B, 1, group, T, S)
+        s = torch.where(valid.reshape(B, 1, group * T, S), s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(dt)
     o = p @ cv.to(dt).permute(0, 2, 1, 3)                 # (B, KV, G*T, dh)
     o = o.reshape(B, n_kv, group, T, head_dim).permute(0, 3, 1, 2, 4)
@@ -162,18 +180,29 @@ def _dense_attend(q, ck, cv, positions, wo, *, n_heads, n_kv, head_dim):
 
 
 def decode_attention(params, x, cache, positions, *, n_heads, n_kv,
-                     head_dim, qk_norm=False, rope_theta=1e4):
+                     head_dim, qk_norm=False, rope_theta=1e4, cross=False):
     """Single-token attention against a dense per-slot KV cache.
 
     x: (B, 1, d); positions: (B,) current index per slot; cache:
     {"k", "v"} of (B, S, KV, dh), written in place at ``positions``.
-    Positions past each slot's own are masked.  Returns (out (B, 1, d),
-    cache).
+    Positions past each slot's own are masked.  ``cross=True`` is the
+    reference's read-only cross-attention: q alone is projected and
+    roped at ``positions``, the cache (the encoder's K/V, B, S_enc, KV,
+    dh) is neither written nor masked.  Returns (out (B, 1, d), cache).
     """
     B = x.shape[0]
+    ck, cv = cache["k"], cache["v"]
+    if cross:
+        q = _proj(x, params["wq"])
+        if qk_norm:
+            q = rms_norm(q, params["q_norm"])
+        q = rope(q, positions[:, None], rope_theta)
+        out = _dense_attend(q, ck, cv, positions[:, None], params["wo"],
+                            n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+                            masked=False)
+        return out, cache
     q, k, v = _project_qkv(params, x, positions[:, None], qk_norm=qk_norm,
                            rope_theta=rope_theta)
-    ck, cv = cache["k"], cache["v"]
     b_idx = torch.arange(B, device=x.device)
     pos = positions.long()
     ck[b_idx, pos] = k[:, 0].to(ck.dtype)                 # in place

@@ -2,7 +2,7 @@
 (port of ``repro/models/model_zoo.py``).
 
 ``get_model(cfg, device=None)`` returns a ``ModelAPI`` whose functions
-close over the arch config and the device (``None`` = CUDA).  Four
+close over the arch config and the device (``None`` = CUDA).  Five
 families are ported, each with the training loss and the serving hooks.
 The dense family has decode, chunked prefill and speculative verify,
 each dense and paged.  The ssm (rwkv6), mamba (mamba2) and hybrid
@@ -11,8 +11,14 @@ chunked prefill, but no paged prefill and no verify step, as in the
 reference (O7 on them decodes plainly).  The paged decode step takes
 what the paged manager's ``step_extras()`` emits: (rows,) for rwkv6 and
 mamba2, (tables, rows) for the hybrid, whose shared attention reads the
-block pool (kernel B1) while its trunk's state lives in state rows.
-``input_specs``/``make_batch`` give a training cell's batch.
+block pool (kernel B1) while its trunk's state lives in state rows.  The
+enc-dec family (audio: whisper) carries no state — its self K/V is
+rewrite-safe and its cross K/V read-only — so its contiguous rungs chunk
+prompts like the dense family's; its paged step takes (tables, rows)
+like the hybrid's (self K/V in blocks, cross K/V in state rows), and it
+has chunked prefill but no paged prefill and no verify step, as in the
+reference.  ``input_specs``/``make_batch`` give a training cell's batch
+(with its ``frames`` for the audio family).
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import (hybrid, mamba2, rwkv_lm, scan_prefill,
-                                transformer)
+from repro_torch.models import (encdec, hybrid, mamba2, rwkv_lm,
+                                scan_prefill, transformer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +58,7 @@ class ModelAPI:
     # (params, pool, *extras, tokens, positions) -> (logits, pool): the
     # serving O6 kernel path.  ``extras`` is what the paged manager's
     # ``step_extras()`` emits: (tables,) for the dense family, (rows,)
-    # for the recurrent ones, (tables, rows) for the hybrid.
+    # for the recurrent ones, (tables, rows) for the hybrid and enc-dec.
     paged_decode_step: Callable = None
     # Chunked prefill (params, cache, tokens (B, C), start (B,), last
     # (B,)) -> (logits, cache): C prompt tokens per call, logits at each
@@ -74,11 +80,13 @@ def get_model(cfg: ArchConfig, device=None) -> ModelAPI:
     if cfg.family in _RECURRENT:
         return _recurrent_model(cfg, resolve_device(device),
                                 _RECURRENT[cfg.family])
+    if cfg.family == "audio":
+        return _encdec_model(cfg, resolve_device(device))
     if cfg.family != "dense" or cfg.n_experts:
         raise NotImplementedError(
             f"family {cfg.family!r} (n_experts {cfg.n_experts}) is not "
-            f"ported yet; repro_torch runs the dense, ssm, mamba and "
-            f"hybrid families (ROADMAP A11-A12)")
+            f"ported yet; repro_torch runs the dense, ssm, mamba, hybrid "
+            f"and audio families (ROADMAP A11-A12)")
     dev = resolve_device(device)
     mod = transformer
     return ModelAPI(
@@ -163,6 +171,37 @@ def _recurrent_model(cfg: ArchConfig, dev: torch.device, mod) -> ModelAPI:
     )
 
 
+def _encdec_model(cfg: ArchConfig, dev: torch.device) -> ModelAPI:
+    """whisper: decode over the self K/V and the read-only cross K/V, its
+    mixed-pool paged form (``extras`` = (tables, rows): kernel B1 / B1q
+    on the self K/V, the cross K/V gathered from state rows) and chunked
+    prefill by running the decode body over the chunk.  Not carried
+    state (``carries_state`` False), no paged prefill and no verify
+    step, as in the reference: O7 decodes plainly (``spec_mode``
+    "off")."""
+    mod = encdec
+    return ModelAPI(
+        cfg=cfg,
+        device=dev,
+        init=lambda generator, dtype=None: mod.init(cfg, generator, dev,
+                                                    dtype),
+        defs=lambda: mod.model_defs(cfg),
+        loss=lambda params, batch: mod.lm_loss(cfg, params, batch),
+        decode_step=lambda params, cache, tokens, positions:
+            mod.decode_step(cfg, params, cache, tokens, positions),
+        cache_spec=lambda batch, max_seq: mod.cache_spec(cfg, batch, max_seq),
+        init_cache=lambda batch, max_seq:
+            mod.init_cache(cfg, batch, max_seq, device=dev),
+        cache_axes=lambda: mod.cache_axes(cfg),
+        paged_decode_step=lambda params, pool, tables, rows, tokens,
+        positions, scales=None, kv_dtype="bf16": mod.paged_decode_step(
+            cfg, params, pool, tables, rows, tokens, positions,
+            scales=scales, kv_dtype=kv_dtype),
+        prefill_step=lambda params, cache, tokens, start, last:
+            mod.prefill_step(cfg, params, cache, tokens, start, last),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Drafter pairing (speculative decoding)
 # ---------------------------------------------------------------------------
@@ -219,21 +258,35 @@ def compatible_drafter(target, draft=None) -> ArchConfig:
 # ---------------------------------------------------------------------------
 
 def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
-    """Train/prefill batch specs for one cell: {name: (shape, dtype)}."""
-    if cfg.family in ("audio", "vlm"):
+    """Train/prefill batch specs for one cell: {name: (shape, dtype)};
+    the audio family's adds its ``frames`` (B, S, d_model) in the compute
+    dtype."""
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"family {cfg.family!r} batches (frames / patches) are not "
-            f"ported yet (ROADMAP A11)")
+            f"family {cfg.family!r} batches (patches) are not ported yet "
+            f"(ROADMAP A11)")
     B, S = shape.global_batch, shape.seq_len
-    return {"tokens": ((B, S), torch.int32), "labels": ((B, S), torch.int32)}
+    specs = {"tokens": ((B, S), torch.int32),
+             "labels": ((B, S), torch.int32)}
+    if cfg.family == "audio":
+        specs = {"frames": ((B, S, cfg.d_model),
+                            transformer.compute_dtype(cfg)), **specs}
+    return specs
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeConfig, generator, *,
                device=None) -> dict:
     """A synthetic batch matching ``input_specs``: token ids drawn
-    uniformly from the vocab with ``generator`` (which must live on
-    ``device``; ``None`` = CUDA)."""
+    uniformly from the vocab, frames from a normal of std 0.02 (the
+    reference's synthetic scale), all with ``generator`` (which must
+    live on ``device``; ``None`` = CUDA)."""
     dev = resolve_device(device)
-    return {name: torch.randint(0, cfg.vocab, shp, generator=generator,
-                                device=dev, dtype=dt)
-            for name, (shp, dt) in input_specs(cfg, shape).items()}
+    out = {}
+    for name, (shp, dt) in input_specs(cfg, shape).items():
+        if dt.is_floating_point:
+            out[name] = (torch.randn(shp, generator=generator, device=dev)
+                         * 0.02).to(dt)
+        else:
+            out[name] = torch.randint(0, cfg.vocab, shp, generator=generator,
+                                      device=dev, dtype=dt)
+    return out

@@ -89,10 +89,11 @@ def scan_prefill(decode_fn, cache: dict, tokens, start, last, *,
     ``last`` token: pad feeds never touch carried state.
 
     ``max_seq`` clips each step's positions to ``[0, max_seq)``.  The
-    leaves named in ``in_place`` are position-addressed logs: the body
-    is then called as ``decode_fn(cache, tok, pos, live)`` with ``live``
-    (B,) bool, must write those leaves in place on the live slots' rows
-    only, and returns them as they are; they are neither frozen nor
+    leaves named in ``in_place`` are position-addressed logs (or
+    read-only, as an enc-dec's cross K/V): the body is then called as
+    ``decode_fn(cache, tok, pos, live)`` with ``live`` (B,) bool, must
+    write those leaves in place on the live slots' rows only (or not at
+    all), and returns them as they are; they are neither frozen nor
     copied here."""
     B, C = tokens.shape
     cur = dict(cache)

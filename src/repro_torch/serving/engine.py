@@ -91,6 +91,7 @@ from repro_torch.core.optlevel import BestEffortConfig, OptLevel, Step
 from repro_torch.models import model_zoo
 from repro_torch.serving.layout import select_layout, shared_steps
 from repro_torch.serving.overlap import HostOverlap
+from repro_torch.serving.paged import is_state_leaf
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -344,8 +345,9 @@ class DecodeEngine:
                 self._host_to_device([n - 1]), [seed])
         state = dense(cache)
         for name, ax in self.model.cache_axes().items():
-            state[name].narrow(ax.index("kv_seq"), P,
-                               self.max_seq - P).zero_()
+            if not is_state_leaf(ax):           # a cross leaf is read-only
+                state[name].narrow(ax.index("kv_seq"), P,
+                                   self.max_seq - P).zero_()
         return PrefillResult(request=req, first_token=int(tok_dev),
                              kv_state=state, length=P)
 

@@ -18,7 +18,9 @@ again:
     kernel step hands the rows to the model's paged step, which does the
     same (rwkv6 and mamba2 have no attention to run a kernel on; the
     hybrid zamba2 takes its tables and rows both, and its shared
-    attention runs the paged-decode kernel).
+    attention runs the paged-decode kernel; so does the enc-dec whisper,
+    whose state rows hold its read-only cross K/V and whose decoder
+    self-attention runs the kernel).
 
 The layout owns cache-manager construction, scheduler wiring (the block
 pool's admission gates) and the three steps the engine dispatches: the
@@ -393,22 +395,27 @@ class PagedLayout(KVLayout):
 
     def make_solo_prefill(self, model, sampler_cfg, max_seq, config):
         """A private batch-1 pool (same block size and stored dtype, one
-        full reservation) driven by this layout's prefill step — on the
-        kernel variant B2 — read back as the dense view of its table."""
+        full reservation, and on a mixed pool one state row) driven by
+        this layout's prefill step — on the kernel variant B2 — read back
+        as the dense view of its table and its row."""
         mgr = self.build_manager(model, 1, max_seq,
                                  dataclasses.replace(config,
                                                      kv_pool_blocks=0))
         mgr.grow_slot(0, max_seq)
-        (tables,) = mgr.step_extras()
+        if mgr.state is not None:
+            mgr.state.admit_slot(0)
+        extras = mgr.step_extras()
+        tables, rows = _split_extras(mgr, extras)
         step = self.make_prefill_step(model, sampler_cfg, mgr)
 
         def dense(cache):
             pool, scales = split_cache(cache, mgr.plan.quantized)
-            view = mgr.plan.gather(pool, tables, scales)
-            return {name: leaf[:, :, :max_seq] for name, leaf in view.items()}
+            view = _gather_view(mgr, pool, scales, tables, rows)
+            return {name: leaf[:, :, :max_seq] if name in mgr.plan.leaf_specs
+                    else leaf for name, leaf in view.items()}
 
         return (mgr.cache,
-                lambda params, cache, *args: step(params, cache, tables, 0,
+                lambda params, cache, *args: step(params, cache, *extras, 0,
                                                   *args),
                 dense)
 

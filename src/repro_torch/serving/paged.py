@@ -13,7 +13,11 @@ so short requests admit more concurrency at equal memory.
 Recurrent state (the rwkv6 wkv matrix and token shifts, the mamba2
 conv/ssm state) has no sequence axis: it is O(1) per slot, so blocks are
 the wrong shape for it.  Those leaves live in a pool of per-slot state
-ROWS instead, with a slot -> row map and no tables.
+ROWS instead, with a slot -> row map and no tables.  So does an enc-dec
+family's cross-attention K/V (whisper): a fixed-length blob written once
+at insert and read unmasked, so the stale-positions-are-masked argument
+that makes paging safe does not hold for it.  Its axes say so: its
+sequence axis is the encoder's ``enc_seq``, not ``kv_seq``.
 
 Layering (the allocators are pure host code, testable without a device):
 
@@ -66,9 +70,16 @@ def blocks_for(n_tokens: int, block_size: int) -> int:
 
 
 def is_state_leaf(axes: tuple) -> bool:
-    """A cache leaf with no sequence axis is carried state (row-pooled);
-    one with a ``kv_seq`` axis is a KV log (block-pooled)."""
+    """A cache leaf with no ``kv_seq`` axis is state (row-pooled): carried
+    state, or an encoder's read-only K/V; one with a ``kv_seq`` axis is a
+    KV log (block-pooled)."""
     return "kv_seq" not in axes
+
+
+def is_read_only_leaf(axes: tuple) -> bool:
+    """A state leaf over the encoder's sequence (``enc_seq``: an enc-dec
+    family's cross K/V) is written once, at insert, and by no step."""
+    return "enc_seq" in axes
 
 
 def split_cache(cache, quantized: bool):
@@ -502,7 +513,7 @@ class BlockPagingPlan:
 
 class StatePagingPlan:
     """Row-pooled storage of the state leaves (the recurrent families'
-    carried state).
+    carried state, an enc-dec family's read-only cross K/V).
 
     Each state leaf trades its batch axis for a pool-row axis of
     ``total_rows`` rows (``rows``' allocatable rows + the NULL row 0) at
@@ -511,14 +522,17 @@ class StatePagingPlan:
     the view back through the rows in place; the NULL row takes the
     writes of parked and unoccupied slots, however many alias it
     (``models/scan_prefill``'s row helpers, which the paged kernel step
-    uses too).  State is never quantized: it is carried, not masked, and
-    the narrow pools' tolerance contract covers attention reads only."""
+    uses too).  A read-only leaf (cross K/V) is gathered but never
+    scattered back: no step writes it.  State is never quantized: it is
+    carried or read unmasked, and the narrow pools' tolerance contract
+    covers masked attention reads only."""
 
     def __init__(self, model, rows: StatePool, max_seq: int):
         self.total_rows = rows.n_rows + 1
         axes = model.cache_axes()
         self.leaf_specs = {}          # name -> (shape, dtype, batch axis)
         self.batch_axes = {}          # name -> batch axis
+        self.carried_axes = {}        # the same, read-only leaves left out
         self.state_row_bytes = 0
         for name, (shape, dtype) in model.cache_spec(rows.B,
                                                      max_seq).items():
@@ -527,6 +541,8 @@ class StatePagingPlan:
             bax = axes[name].index("batch")
             self.leaf_specs[name] = (shape, dtype, bax)
             self.batch_axes[name] = bax
+            if not is_read_only_leaf(axes[name]):
+                self.carried_axes[name] = bax
             n = 1
             for ax, d in enumerate(shape):
                 if ax != bax:
@@ -555,9 +571,10 @@ class StatePagingPlan:
         return gather_rows(pool, rows, self.batch_axes)
 
     def scatter(self, pool, rows, dense) -> dict:
-        """The view back into its pool rows in place, the NULL row the
-        sink (``scan_prefill.scatter_rows``)."""
-        return scatter_rows(pool, rows, dense, self.batch_axes)
+        """The view's carried leaves back into their pool rows in place,
+        the NULL row the sink (``scan_prefill.scatter_rows``); read-only
+        leaves are not written."""
+        return scatter_rows(pool, rows, dense, self.carried_axes)
 
     def zero_rows(self, pool, rows) -> None:
         """Zero pool rows ``rows`` (a long tensor) of every state leaf:
@@ -647,7 +664,9 @@ class PagedCacheManager(PagedAllocator):
         slots' whole table rows to the NULL block as well: their K/V is
         computed from the NULL row's garbage state, and on a narrow pool
         the append would re-quantize the slot's active block, whose
-        earlier positions its chunks already wrote."""
+        earlier positions its chunks already wrote.  An enc-dec family's
+        parked slot reads the NULL row's cross K/V the same way; its own
+        cross row is read-only and keeps its bits."""
         dev = self.model.device
         out = []
         if self.has_blocks:
@@ -712,9 +731,12 @@ class PagedCacheManager(PagedAllocator):
     def reset_slots(self, indices: list, live: list) -> None:
         """Zero the state rows ``admit_slot`` just assigned to ``indices``
         (one fill per state leaf): state is carried, not masked, so a
-        previous tenant's would leak into the new request's first step.
-        KV blocks need nothing — their tables were rebuilt and every
-        stale position is masked."""
+        previous tenant's would leak into the new request's first step;
+        a cross row read unmasked would too, so a submitted enc-dec
+        request starts from the zero cross K/V the reference serves with
+        (``insert_slot`` puts an encoded one in).  KV blocks need
+        nothing — their tables were rebuilt and every stale position is
+        masked."""
         del live
         if not indices or self.state is None:
             return
@@ -734,7 +756,9 @@ class PagedCacheManager(PagedAllocator):
         block with a fresh absmax scale and installs the scale rows
         beside it (``engine.prefill`` zeroes its state past the prompt,
         so only the prompt's values set a scale).  A state leaf's batch-1
-        slice is copied into slot ``i``'s state row."""
+        slice is copied into slot ``i``'s state row — cross-attention K/V
+        built offline (``encdec.build_cross_cache``) rides in through the
+        same door."""
         pool, scales = split_cache(self.cache, self.plan.quantized)
         if state.keys() != pool.keys():
             raise ValueError(f"prefill state leaves {sorted(state)} != "

@@ -10,7 +10,10 @@ tile on 3xTF32 mma.sync, the rest on the CUDA cores) against
 their plain PyTorch versions on the card; the MachSuite byte kernels
 (aes, kmp, nw) at every level on the card against their oracles; and the
 recurrent serving steps of rwkv6 and mamba2 (no kernel: the same torch
-ops) on the card against the CPU.  They carry the ``cuda`` marker and
+ops) on the card against the CPU; and whisper's shapes: B1 / B1q at
+H = KV = 8, D = 64, B3 non-causal with fewer keys than queries, and the
+enc-dec decode, paged and prefill steps on the card against the CPU.
+They carry the ``cuda`` marker and
 skip without a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1230,3 +1233,153 @@ def test_recurrent_decode_and_scan_prefill_on_the_card(arch):
         for name, leaf in chunk.items():
             assert torch.equal(leaf.select(bax[name], b),
                                state[name].select(bax[name], b)), (name, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,causal", [
+    ((2, 1500, 1500, 8, 8, 64), False),    # whisper's encoder
+    ((2, 64, 16, 8, 8, 64), False),        # cross: S_kv < S
+    ((1, 300, 7, 4, 2, 64), False),        # S_kv below one key tile
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_non_causal_at_whisper_shapes(dims, causal, dtype):
+    """B3 without a mask at the encoder's shape and with fewer keys than
+    queries (a cross-attention's rows attend every key) against the
+    plain version, at B3's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_case(*dims, dtype=dtype)
+    before = fops.flash_attention.launches
+    got = fops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    assert torch.isfinite(got).all()
+    err = (got.float() - want).abs()
+    row = want.abs().amax(dim=-1, keepdim=True)
+    rtol = 1.6e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (err <= rtol * row).all(), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_paged_attention_at_whisper_decoder_shape(kv_dtype):
+    """B1 / B1q at whisper-base's decoder self-attention (B=8, H=KV=8,
+    D=64, T=16, lengths 5-130) on the split body against the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from repro_torch.serving import kvquant
+
+    lengths = [5, 17, 33, 64, 80, 97, 120, 130]
+    q, kp, vp, tables, lens = _case(8, 8, 8, 64, 16, 9,
+                                    dtype=torch.bfloat16, lengths=lengths)
+    case = (q, kp, vp, tables, lens)
+    kw = {}
+    if kv_dtype != "bf16":
+        kp, vp = (torch.nan_to_num(p).float() for p in (kp, vp))
+        scales = []
+        words = []
+        for p in (kp, vp):
+            s = kvquant.block_scale(p, (1, 3), kv_dtype)     # (R, 1, KV, 1)
+            words.append(kvquant.quantize(p, s, kv_dtype))
+            scales.append(s[:, 0, :, 0].contiguous())
+        case = (q, words[0], words[1], tables, lens)
+        kw = dict(k_scale=scales[0], v_scale=scales[1])
+    assert ops.body(q.dtype, case[1].dtype, 64) == "split_mma"
+    before = dict(ops.paged_attention.body_launches)
+    got = ops.paged_attention(*case, **kw)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.body_launches["split_mma"] == \
+        before["split_mma"] + 1
+    want = ref.paged_attention_ref(*case, **kw).float()
+    assert torch.isfinite(got).all()
+    err = (got.float() - want).abs()
+    assert (err <= 1e-3 + 1.6e-2 * want.abs()).all(), float(err.max())
+
+
+@pytest.mark.cuda
+def test_encdec_steps_on_the_card():
+    """whisper-base cut to 2 layers at full width, f32: ``encode`` on the
+    card against the CPU; over one cross K/V (``build_cross_cache`` of
+    the CPU's encoder states) and f32 caches, the decode step, the
+    mixed-pool paged step (B1 on an f32 pool of the self K/V) and a
+    ragged ``prefill_step`` chunk on the card against the CPU, all within
+    ``RECURRENT_CARD_TOL`` of each output's scale (a bf16 store would let
+    a one-ulp rounding of a K element move the logits ~1e-2 in this
+    model, ROADMAP C8); on the card the chunk equals its one-token steps
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (holds the card against the CPU)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, get_model
+    from repro_torch.serving.paged import PagedCacheManager
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.tree import map_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("whisper-base"), n_layers=2,
+                              n_enc_layers=2, compute_dtype="float32")
+    models = {"cpu": get_model(cfg, device="cpu"), "cuda": get_model(cfg)}
+    params = {"cpu": models["cpu"].init(torch.Generator().manual_seed(0))}
+    params["cuda"] = map_tree(lambda t: t.cuda(), params["cpu"])
+    B, C, S = 4, 6, 40
+    gen = torch.Generator().manual_seed(1)
+    frames = torch.randn((B, S, cfg.d_model), generator=gen) * 0.02
+    toks = torch.randint(1, cfg.vocab, (B, C), generator=gen)
+    last = torch.tensor([C - 1, 2, 0, C - 1])
+    start = torch.zeros(B, dtype=torch.long)
+    enc = {dev: encdec.encode(cfg, params[dev], frames.to(dev))
+           for dev in models}
+    assert _rel(enc["cuda"], enc["cpu"]) <= RECURRENT_CARD_TOL
+    cross = {k: v.float() for k, v in encdec.build_cross_cache(
+        cfg, params["cpu"], enc["cpu"]).items()}
+
+    def fresh(dev):
+        c = encdec.init_cache(cfg, B, S, device=dev, dtype=torch.float32)
+        c.update({k: v.to(dev) for k, v in cross.items()})
+        return c
+
+    out = {}
+    for dev, model in models.items():
+        p = params[dev]
+        cache = fresh(dev)
+        steps = []
+        for j in range(C):
+            lg, cache = model.decode_step(p, cache, toks[:, j:j + 1].to(dev),
+                                          (start + j).to(dev))
+            steps.append((lg, {k: v.clone() for k, v in cache.items()}))
+        mgr = PagedCacheManager(model, B, S, block_size=16)
+        mgr.cache = {k: v.float() for k, v in mgr.cache.items()}
+        for b in range(B):
+            mgr.admit_slot(b, Request(prompt=[1] * C, max_new_tokens=1))
+        tables, rows = mgr.step_extras()
+        for name, leaf in cross.items():
+            mgr.cache[name][:, rows.long()] = leaf.to(dev)
+        paged = []
+        for j in range(C):
+            lg, _ = model.paged_decode_step(p, mgr.cache, tables, rows,
+                                            toks[:, j:j + 1].to(dev),
+                                            (start + j).to(dev))
+            paged.append(lg)
+        sel, chunk = model.prefill_step(p, fresh(dev), toks.to(dev),
+                                        start.to(dev), last.to(dev))
+        out[dev] = (steps, paged, sel, chunk)
+    for (a, _), (b, _) in zip(out["cuda"][0], out["cpu"][0]):
+        assert a.device.type == "cuda"
+        assert _rel(a, b) <= RECURRENT_CARD_TOL
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert _rel(a, b) <= RECURRENT_CARD_TOL
+    assert _rel(out["cuda"][2], out["cpu"][2]) <= RECURRENT_CARD_TOL
+    steps, _, sel, chunk = out["cuda"]
+    for b, j in enumerate(last.tolist()):
+        logits, state = steps[j]
+        assert torch.equal(sel[b], logits[b]), b
+        for name, leaf in chunk.items():
+            assert torch.equal(leaf[:, b], state[name][:, b]), (name, b)

@@ -227,3 +227,23 @@ def test_recurrent_serving_defaults_to_cuda_and_never_falls_back(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--arch", arch, "--smoke", "--level", "6"])
     assert get_model(get_smoke(arch), device="cpu").carries_state
+
+
+def test_the_scan_covers_the_encdec_family():
+    assert {"repro_torch.models.encdec",
+            "repro_torch.configs.whisper_base"} <= set(_modules())
+
+
+def test_encdec_entry_points_default_to_cuda_and_never_fall_back(
+        monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.models import get_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("whisper-base")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_demo(cfg, batch_size=2, max_seq=16, n_requests=1)
+    assert get_model(cfg, device="cpu").device.type == "cpu"

@@ -188,7 +188,7 @@ def test_get_model_rejects_unported_families():
         get_model(cfg, device="cpu")
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="not ported"):
-        get_config("whisper-base")
+        get_config("internvl2-26b")
 
 
 # ---------------------------------------------------------------------------
